@@ -1,13 +1,16 @@
 """claragenomicsanalysis_tpu_torch — the PyTorch / CUDA port of
 claragenomicsanalysis_tpu for NVIDIA Hopper GPUs.
 
-The port mirrors the JAX package's layout (``ops/``, ``models/``, ``utils/``,
-``cli.py``) and imports its framework-free modules (``core``, ``io``,
-``cpu`` oracles, ``utils.genomeutils``, ``simulators``) rather than copying
-them.  Every kernel is written by hand for ``sm_90a`` under ``csrc/`` and
-built with ``nvcc`` at first use; beside each one a plain PyTorch version
-defines the same output and runs on CPU tensors.  The package imports
-``torch`` and never ``jax``.
+The port mirrors the JAX package's layout (``core/``, ``io/``, ``ops/``,
+``align/``, ``models/``, ``utils/``, ``cli.py``).  It imports nothing of
+``claragenomicsanalysis_tpu``: of the JAX package's framework-free modules it
+keeps its own copies of the parts it runs, under the same module names
+(``core.status``, ``core.config``, ``io.fasta``,
+``utils.genomeutils``, ``utils.mathutils``; ``utils.cigar`` holds the CIGAR
+and pretty-print helpers of ``cpu/nw_oracle.py``).  Every kernel is written
+by hand for ``sm_90a`` under ``csrc/`` and built with ``nvcc`` at first use;
+beside each one a plain PyTorch version defines the same output and runs on
+CPU tensors.  The package imports ``torch`` and never ``jax``.
 """
 
 __version__ = "0.1.0"

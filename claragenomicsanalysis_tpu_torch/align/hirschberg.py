@@ -1,0 +1,156 @@
+"""Hirschberg–Myers divide and conquer for long pairs (counterpart of
+``claragenomicsanalysis_tpu/align/hirschberg.py``, without its
+sequence-parallel ring path).
+
+Linear-memory global alignment, level by level: every open fragment of the
+whole batch whose query side exceeds ``BASE_Q`` is split at its middle query
+row.  One forward and one reversed Myers bottom row per fragment, in a
+single batched call, locate the column where an optimal path crosses that
+row; the two halves are the next level's fragments.  Fragments with a query
+side of at most ``BASE_Q`` are solved by banded NW at radius
+``max(8, pow2(longest side))``, which holds every global path of the
+fragment.  The pieces, in query order, make each pair's path.
+
+The path is optimal and deterministic but not the dense canonical one: the
+split takes the smallest optimal column.  The split rule, the middle row,
+``BASE_Q`` and the base radius are the JAX package's, so the two packages
+give the same path.  Fragments live as NumPy arrays on the host; each
+level's sequences are cut from the pairs' codes on the device, and only the
+split columns come back.
+
+``hirschberg_align_batch.pairs`` and ``.levels`` count the pairs it aligned
+and the split levels it ran, as the kernel wrappers count their launches.
+"""
+
+import numpy as np
+import torch
+
+from ..ops.banded import launch_chunks, resolve
+from ..ops.myers import myers_bottom_row
+from ..ops.nw_diag import INF
+from ..utils.genomeutils import PAD, pack_pairs
+from ..utils.profiling import trace_range
+
+BASE_Q = 32  # fragments with a query side <= BASE_Q are solved directly
+
+
+def pow2_at_least(x: np.ndarray) -> np.ndarray:
+    """Elementwise ``1 << (x - 1).bit_length()``: the least power of two
+    >= x, for integers x >= 1."""
+    return np.left_shift(1, np.frexp(np.asarray(x, np.float64) - 1)[1])
+
+
+def _cut(codes: torch.Tensor, row: np.ndarray, start: np.ndarray,
+         length: np.ndarray, width: int, reverse: bool) -> torch.Tensor:
+    """(n, width) int8: ``codes[row, start:start + length]``, reversed when
+    asked, PAD past ``length``."""
+    dev = codes.device
+    row, start, length = (torch.from_numpy(a).to(dev)[:, None]
+                          for a in (row, start, length))
+    k = torch.arange(width, device=dev)
+    inside = k < length
+    pos = start + (length - 1 - k if reverse else k)
+    return torch.where(inside, codes[row, torch.where(inside, pos, 0)], PAD)
+
+
+def split_points(rows: torch.Tensor, tlen: torch.Tensor) -> torch.Tensor:
+    """Split columns of n fragments from their 2n bottom rows, forward rows
+    first: ``argmin_j fwd[i, j] + rev[i, mlen - j]`` over ``j <= mlen``
+    (``mlen = tlen[i]``), ties to the smallest j.  The tie-break is
+    explicit (the minimum, then the first column that reaches it), so it
+    does not rest on an argmin's order on the device."""
+    n = rows.shape[0] // 2
+    fwd, rev = rows[:n].long(), rows[n:].long()
+    mlen = tlen[:n].long()[:, None]
+    jj = torch.arange(rows.shape[1], device=rows.device)[None, :]
+    rev_at = rev.gather(1, (mlen - jj).clamp(0, rows.shape[1] - 1))
+    total = torch.where(jj <= mlen, fwd + rev_at, INF)
+    best = total.min(1, keepdim=True).values
+    return torch.where(total == best, jj, rows.shape[1]).min(1).values
+
+
+def hirschberg_align_batch(queries: list[str], targets: list[str],
+                           device) -> tuple[list[list[int]], np.ndarray]:
+    """-> (paths, dists): each pair's optimal edit path (AlignmentState
+    codes) and its cost, with the DP on ``device``."""
+    nw_fn, decode_fn = resolve(device)
+    dev = torch.device(device)
+    P = len(queries)
+    if P == 0:
+        return [], np.zeros(0, np.int64)
+    qlen = np.array([len(s) for s in queries], np.int64)
+    tlen = np.array([len(s) for s in targets], np.int64)
+    codes = pack_pairs(queries, targets, max(1, int(qlen.max(initial=0))),
+                       max(1, int(tlen.max(initial=0))))
+    Q = torch.from_numpy(codes[0]).to(dev)
+    T = torch.from_numpy(codes[2]).to(dev)
+
+    leaves: list[tuple[np.ndarray, np.ndarray, list]] = []
+    frag = (np.arange(P), np.zeros(P, np.int64), qlen, np.zeros(P, np.int64),
+            tlen)                                  # pair, qlo, qhi, tlo, thi
+    while len(frag[0]):
+        base = frag[2] - frag[1] <= BASE_Q
+        if base.any():
+            with trace_range("hirschberg.base"):
+                leaves += _solve_base(Q, T, *(a[base] for a in frag),
+                                      nw_fn, decode_fn)
+        frag = tuple(a[~base] for a in frag)
+        if len(frag[0]):
+            with trace_range("hirschberg.split"):
+                frag = _split_level(Q, T, *frag)
+                hirschberg_align_batch.levels += 1
+
+    pair = np.concatenate([p for p, _, _ in leaves])
+    qlo = np.concatenate([lo for _, lo, _ in leaves])
+    pieces = [piece for _, _, ps in leaves for piece in ps]
+    paths: list[list[int]] = [[] for _ in range(P)]
+    for k in np.lexsort((qlo, pair)):          # leaves in query order
+        paths[pair[k]] += pieces[k]
+    dists = np.array([np.count_nonzero(p) for p in paths], np.int64)
+    hirschberg_align_batch.pairs += P
+    return paths, dists
+
+
+hirschberg_align_batch.pairs = 0
+hirschberg_align_batch.levels = 0
+
+
+def _solve_base(Q, T, pair, qlo, qhi, tlo, thi, nw_fn, decode_fn):
+    """Banded NW of the base fragments, bucketed by radius and cut into
+    launches by ops.banded.launch_chunks; -> one (pair, qlo, paths) triple
+    per launch."""
+    qs, ts = qhi - qlo, thi - tlo
+    radius = np.maximum(8, pow2_at_least(np.maximum(np.maximum(qs, ts), 1)))
+    out = []
+    for r in np.unique(radius).tolist():
+        bucket = np.flatnonzero(radius == r)
+        Lq, Lt = max(1, int(qs[bucket].max())), max(1, int(ts[bucket].max()))
+        for sel in launch_chunks(bucket, Lq, Lt, r):
+            q = _cut(Q, pair[sel], qlo[sel], qs[sel], Lq, False)
+            t = _cut(T, pair[sel], tlo[sel], ts[sel], Lt, False)
+            ql, tl = (torch.from_numpy(a[sel].astype(np.int32)).to(Q.device)
+                      for a in (qs, ts))
+            _, tb = nw_fn(q, ql, t, tl, r)
+            out.append((pair[sel], qlo[sel], decode_fn(tb, ql, tl, r)))
+    return out
+
+
+def _split_level(Q, T, pair, qlo, qhi, tlo, thi):
+    """One level: forward and reversed bottom rows of every fragment in one
+    batched call; -> the two children of each fragment."""
+    mid = (qlo + qhi) // 2
+    fq, rq, tn = mid - qlo, qhi - mid, thi - tlo
+    Lq, Lt = int(max(fq.max(), rq.max())), int(tn.max())
+    q = torch.cat([_cut(Q, pair, qlo, fq, Lq, False),
+                   _cut(Q, pair, mid, rq, Lq, True)])
+    t = torch.cat([_cut(T, pair, tlo, tn, Lt, False),
+                   _cut(T, pair, tlo, tn, Lt, True)])
+    ql = torch.from_numpy(np.concatenate([fq, rq]).astype(np.int32))
+    tl = torch.from_numpy(np.concatenate([tn, tn]).astype(np.int32))
+    ql, tl = ql.to(Q.device), tl.to(Q.device)
+    rows, _ = myers_bottom_row(q, ql, t, tl)
+    jstar = split_points(rows, tl).cpu().numpy()
+    cut = tlo + jstar
+    return (np.concatenate([pair, pair]), np.concatenate([qlo, mid]),
+            np.concatenate([mid, qhi]), np.concatenate([tlo, cut]),
+            np.concatenate([cut, thi]))

@@ -9,12 +9,11 @@ counterpart yet.
 import argparse
 import sys
 
-from claragenomicsanalysis_tpu.core.status import StatusType
+from .core.status import StatusType
+from .io.fasta import create_fasta_parser
 
 
 def cmd_align(args) -> int:
-    from claragenomicsanalysis_tpu.io.fasta import create_fasta_parser
-
     from .models.aligner import create_aligner
     qp = create_fasta_parser(args.queries)
     tp = create_fasta_parser(args.targets)

@@ -1,0 +1,3 @@
+"""Status codes and the aligner's configuration: the port's own copies of
+the parts of ``claragenomicsanalysis_tpu.core`` that it runs, under the same
+module names."""

@@ -4,28 +4,36 @@
 ``create_aligner(...)`` -> ``Aligner`` with ``add_alignment`` / ``align_all``
 / ``get_alignments`` / ``reset``; each ``Alignment`` carries the edit path,
 CIGAR, pretty view and a per-problem ``StatusType``, exactly as in the JAX
-package.  The ``ukkonen`` algorithm runs banded NW with the adaptive band on
-an explicit ``torch.device``: on ``cuda`` through the hand-written kernels of
-ops/, on ``cpu`` through their plain PyTorch versions.
+package.  The DP runs on an explicit ``torch.device``: on ``cuda`` through
+the hand-written kernels of ops/, on ``cpu`` through their plain PyTorch
+versions.  Algorithms:
+
+- ``ukkonen`` (default): banded NW with the adaptive band;
+- ``myers``: Myers bit-vector scores, then a banded re-run for the canonical
+  path (align/myers_aligner.py);
+- ``banded-escalate``: banded NW at doubling radii, no scoring pass (same
+  module);
+- ``hirschberg-myers``: linear-memory divide and conquer
+  (align/hirschberg.py).
 """
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from claragenomicsanalysis_tpu.core.bufferplan import plan_aligner_batch
-from claragenomicsanalysis_tpu.core.config import AlignerConfig
-from claragenomicsanalysis_tpu.core.status import AlignmentType, StatusType
-from claragenomicsanalysis_tpu.cpu import nw_oracle
-from claragenomicsanalysis_tpu.utils.genomeutils import encode
-
-from ..ops.banded import resolve
+from ..align.hirschberg import hirschberg_align_batch
+from ..align.myers_aligner import (banded_escalate_align_batch,
+                                   myers_align_batch)
+from ..core.config import AlignerConfig
+from ..core.status import AlignmentType, StatusType
+from ..ops.banded import launch_chunks, resolve
 from ..ops.nw_diag import INF
+from ..utils import cigar
+from ..utils.genomeutils import pack_pairs
 from ..utils.profiling import trace_range
 
-#: algorithms of the JAX aligner that the port does not run yet
-NOT_PORTED = ("myers", "hirschberg-myers", "banded-escalate")
+ALGORITHMS = ("ukkonen", "myers", "hirschberg-myers", "banded-escalate")
 
 
 @dataclass
@@ -49,11 +57,11 @@ class Alignment:
         return self.path
 
     def convert_to_cigar(self, extended: bool = False) -> str:
-        return nw_oracle.path_to_cigar(self.path, extended=extended)
+        return cigar.path_to_cigar(self.path, extended=extended)
 
     def format_alignment(self, width: int = 80) -> str:
-        return nw_oracle.format_alignment(self.path, self.query, self.target,
-                                          width)
+        return cigar.format_alignment(self.path, self.query, self.target,
+                                      width)
 
 
 def bucket_radius(band_radius: int, length_difference: int) -> int:
@@ -65,34 +73,12 @@ def bucket_radius(band_radius: int, length_difference: int) -> int:
     return band_radius + (0 if dl == 0 else max(8, 1 << (dl - 1).bit_length()))
 
 
-def pack_pairs(queries: list[str], targets: list[str], Lq: int, Lt: int):
-    """Sequences -> (q (B, Lq), qlen (B,), t (B, Lt), tlen (B,)) NumPy
-    arrays: int8 base codes with -1 PAD (N also encodes as -1), int32
-    lengths."""
-    B = len(queries)
-    q = np.full((B, Lq), -1, dtype=np.int8)
-    t = np.full((B, Lt), -1, dtype=np.int8)
-    for b, (qs, ts) in enumerate(zip(queries, targets)):
-        q[b] = encode(qs, Lq)
-        t[b] = encode(ts, Lt)
-    qlen = np.array([len(s) for s in queries], dtype=np.int32)
-    tlen = np.array([len(s) for s in targets], dtype=np.int32)
-    return q, qlen, t, tlen
-
-
 class Aligner:
     """Batched global aligner on one ``torch.device``."""
 
-    #: device-memory budget per dispatch; core.bufferplan turns it into the
-    #: problems per kernel launch of one band bucket
-    MEM_BUDGET_PER_DISPATCH = 1 << 28
-
     def __init__(self, config: AlignerConfig, algorithm: str = "ukkonen",
                  device="cuda"):
-        if algorithm in NOT_PORTED:
-            raise NotImplementedError(
-                f"algorithm {algorithm!r}: not yet ported — ROADMAP A.3")
-        if algorithm != "ukkonen":
+        if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}")
         self.config = config
         self.algorithm = algorithm
@@ -145,20 +131,15 @@ class Aligner:
 
     def _plan(self, qlen: np.ndarray, tlen: np.ndarray) -> list:
         """The launches for problems of these lengths: (r, indices) per
-        chunk, band buckets in increasing r, each cut into chunks that
-        core.bufferplan sizes for the bucket's radius."""
+        chunk, band buckets in increasing r, each cut into chunks by
+        ops.banded.launch_chunks."""
         cfg = self.config
         buckets: dict[int, list[int]] = {}
         for b, dl in enumerate(np.abs(np.asarray(qlen) - np.asarray(tlen))):
             buckets.setdefault(bucket_radius(cfg.band_radius, dl), []).append(b)
-        plan = []
-        for r, idxs in sorted(buckets.items()):
-            chunk = plan_aligner_batch(replace(cfg, band_radius=r),
-                                       self.MEM_BUDGET_PER_DISPATCH
-                                       ).problems_per_batch
-            plan += [(r, np.array(idxs[s: s + chunk]))
-                     for s in range(0, len(idxs), chunk)]
-        return plan
+        return [(r, sel) for r, idxs in sorted(buckets.items())
+                for sel in launch_chunks(idxs, cfg.padded_query_length,
+                                         cfg.padded_target_length, r)]
 
     def _run_batch(self) -> list[Alignment]:
         if not self._queries:
@@ -166,8 +147,20 @@ class Aligner:
         cfg = self.config
         with trace_range("aligner.pack"):
             q, qlen, t, tlen = self._pack()
+        dev = self.device
         with trace_range(f"aligner.{self.algorithm}"):
-            paths, dists = self._run_ukkonen(q, qlen, t, tlen)
+            if self.algorithm == "hirschberg-myers":
+                # the unpadded strings, as the JAX package passes them
+                paths, dists = hirschberg_align_batch(self._queries,
+                                                      self._targets, dev)
+            elif self.algorithm == "myers":
+                paths, dists = myers_align_batch(
+                    q, qlen, t, tlen, self._queries, self._targets, dev)
+            elif self.algorithm == "banded-escalate":
+                paths, dists = banded_escalate_align_batch(
+                    q, qlen, t, tlen, self._queries, self._targets, dev)
+            else:
+                paths, dists = self._run_ukkonen(q, qlen, t, tlen)
 
         out = []
         for b, (qs, ts) in enumerate(zip(self._queries, self._targets)):

@@ -23,8 +23,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 LIB_NAME = "libcga_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 #: argtypes of every launcher: a pointer or the stream is c_void_p, an int
@@ -32,6 +33,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "cga_nw_diag": (_PTR,) * 6 + (_INT,) * 6 + (_PTR,),
     "cga_tb_decode_diag": (_PTR,) * 5 + (_INT,) * 5 + (_PTR,),
+    "cga_myers": (_PTR,) * 6 + (_INT,) * 4 + (_PTR,),
 }
 
 
@@ -76,19 +78,38 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library for them exists; return it."""
+    """Compile the sources unless a library for them exists; return it.
+    Each ``.cu`` file compiles in its own ``nvcc`` process, all started
+    together, and one more links the objects."""
     lib = library_path()
     if lib.is_file():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib.parent / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    # nvcc tells an object from a source by its suffix: keep ".o" last
+    objs = [lib.with_name(f"{p.stem}.{tag}.o") for p in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for p, o in zip(cus, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
+    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    (lib.parent / "build.log").write_text("".join(logs) + link.stdout)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(p.name, proc.returncode, log) for p, proc, log
+              in zip(cus, procs, logs) if proc.returncode != 0]
+    if link.returncode != 0 and not failed:
+        failed = [("link", link.returncode, link.stdout)]
+    if failed:
+        raise KernelBuildError("\n".join(
+            f"nvcc {name} exited {rc}:\n{log[-4000:]}"
+            for name, rc, log in failed))
     os.replace(tmp, lib)        # atomic: a reader never sees half a library
     return lib
 

@@ -27,9 +27,8 @@ the problem's traceback is not a path.
 import numpy as np
 import torch
 
-from claragenomicsanalysis_tpu.core.status import AlignmentState
-from claragenomicsanalysis_tpu.utils.mathutils import round_up
-
+from ..core.status import AlignmentState
+from ..utils.mathutils import round_up
 from ..utils.profiling import kernel_span
 from . import _build
 
@@ -159,7 +158,8 @@ def banded_nw_diag(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     if B == 0:
         return scores, tb
     lib = _build.load()
-    with torch.cuda.device(q.device), kernel_span("nw_diag"):
+    with torch.cuda.device(q.device), kernel_span(
+            "nw_diag", (q, qlen, t, tlen, band_radius), B * Dpad * W):
         err = lib.cga_nw_diag(
             q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(),
             scores.data_ptr(), tb.data_ptr(), B, Lq, Lt, band_radius, W,

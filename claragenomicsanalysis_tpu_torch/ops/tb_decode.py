@@ -22,9 +22,8 @@ walks bounded garbage; callers drop it by status.
 import numpy as np
 import torch
 
-from claragenomicsanalysis_tpu.core.status import AlignmentState
-from claragenomicsanalysis_tpu.utils.mathutils import round_up
-
+from ..core.status import AlignmentState
+from ..utils.mathutils import round_up
 from ..utils.profiling import kernel_span
 from . import _build
 
@@ -101,7 +100,8 @@ def decode_diag(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
     if B == 0:
         return packed, start
     lib = _build.load()
-    with torch.cuda.device(tb.device), kernel_span("tb_decode"):
+    with torch.cuda.device(tb.device), kernel_span(
+            "tb_decode", (tb, qlen, tlen, band_radius), B * TL):
         err = lib.cga_tb_decode_diag(
             tb.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             packed.data_ptr(), start.data_ptr(), B, R4, W, band_radius, TL,
@@ -128,6 +128,10 @@ def traceback_paths_device(tb: torch.Tensor, qlen: torch.Tensor,
                            tlen: torch.Tensor,
                            band_radius: int) -> list[list[int]]:
     """Decode on the device; only the packed path words are copied to the
-    host.  Returns forward AlignmentState code lists, one per problem."""
+    host, from the word of the earliest start on (the words before it are
+    zero in every row).  Returns forward AlignmentState code lists, one per
+    problem."""
     packed, start = decode_diag(tb, qlen, tlen, band_radius)
-    return unpack_paths(packed.cpu().numpy(), start.cpu().numpy())
+    start = start.cpu().numpy()
+    first = int(start.min()) // 16 if len(start) else 0
+    return unpack_paths(packed[:, first:].cpu().numpy(), start - 16 * first)

@@ -6,9 +6,11 @@ block.
     with kernel_times() as kt:
         aligner.align_all()
     kt.ms()      # {"nw_diag": total ms, "tb_decode": total ms}
+    kt.largest["nw_diag"]   # the inputs of its largest launch, to replay
 
 Outside such a block :func:`kernel_span` records nothing; inside it, each
-launch costs two event records on the launching stream.
+launch costs two event records on the launching stream, and the block keeps
+the inputs of each kernel's largest launch alive until it ends.
 """
 
 import contextlib
@@ -33,10 +35,14 @@ def trace_range(name: str):
 
 
 class KernelTimes:
-    """Start and end CUDA events of every timed launch, by kernel name."""
+    """Start and end CUDA events of every timed launch, by kernel name, and
+    the inputs of each kernel's largest launch (by the work its wrapper
+    counts)."""
 
     def __init__(self):
         self.events: dict[str, list] = {}
+        self.largest: dict[str, tuple] = {}
+        self._largest_work: dict[str, int] = {}
 
     def ms(self) -> dict[str, float]:
         """Total device milliseconds per kernel; synchronizes the card."""
@@ -62,12 +68,16 @@ def kernel_times():
 
 
 @contextlib.contextmanager
-def kernel_span(name: str):
-    """Wrap one kernel launch: recorded by CUDA events on the current stream
-    when a kernel_times() block is open, free otherwise."""
+def kernel_span(name: str, inputs: tuple = (), work: int = 0):
+    """Wrap one kernel launch on ``inputs`` that does ``work`` (cells or
+    steps, as the wrapper counts them): recorded by CUDA events on the
+    current stream when a kernel_times() block is open, free otherwise."""
     if _collector is None:
         yield
         return
+    if work > _collector._largest_work.get(name, -1):
+        _collector._largest_work[name] = work
+        _collector.largest[name] = inputs
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

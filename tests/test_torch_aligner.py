@@ -22,6 +22,7 @@ from claragenomicsanalysis_tpu.utils.genomeutils import (
     generate_random_genome, mutate_sequence)
 from claragenomicsanalysis_tpu_torch import cli
 from claragenomicsanalysis_tpu_torch.models import aligner as port_aligner
+from claragenomicsanalysis_tpu_torch.ops import banded
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "data")
@@ -57,20 +58,28 @@ def mixed_pairs(seed: int) -> list[tuple[str, str]]:
     return pairs
 
 
-def budget_for(pairs_per_launch: int) -> int:
-    """A dispatch budget that core.bufferplan turns into `pairs_per_launch`
-    problems per launch for every bucket of these tests (r < 64)."""
+def jax_budget_for(pairs_per_launch: int) -> int:
+    """A dispatch budget that the JAX package's core.bufferplan turns into
+    `pairs_per_launch` problems per launch for every bucket of these tests
+    (r < 64)."""
     cfg = AlignerConfig(MAX_LEN, MAX_LEN, 1 << 20, P)
     return pairs_per_launch * plan_aligner_batch(cfg, 1).bytes_per_problem
 
 
+def budget_for(pairs_per_launch: int) -> int:
+    """A dispatch budget that ops.banded.launch_chunks turns into
+    `pairs_per_launch` problems per launch at the widest bucket of these
+    tests (r = P + 16), and more at the narrower ones."""
+    return pairs_per_launch * banded.tb_bytes_per_problem(MAX_LEN, MAX_LEN,
+                                                          P + 16)
+
+
 def run_both(pairs, max_alignments, monkeypatch):
     """Same pairs through both aligners; the dispatch budget is lowered on
-    both so that a band bucket splits into chunks of two."""
-    budget = budget_for(2)
-    monkeypatch.setattr(JaxAligner, "MEM_BUDGET_PER_DISPATCH", budget)
-    monkeypatch.setattr(port_aligner.Aligner, "MEM_BUDGET_PER_DISPATCH",
-                        budget)
+    both so that band buckets split into several launches."""
+    monkeypatch.setattr(JaxAligner, "MEM_BUDGET_PER_DISPATCH",
+                        jax_budget_for(2))
+    monkeypatch.setattr(banded, "MEM_BUDGET_PER_DISPATCH", budget_for(2))
     jax_al = jax_create_aligner(MAX_LEN, MAX_LEN, max_alignments,
                                 band_radius=P, backend="xla")
     port_al = port_aligner.create_aligner(MAX_LEN, MAX_LEN, max_alignments,
@@ -100,7 +109,8 @@ def test_aligner_matches_jax_aligner(monkeypatch):
 
 def test_band_buckets_split_into_chunks(monkeypatch):
     """The chunking the parity test relies on: with the lowered budget the
-    r = P bucket (4 pairs) runs as two launches of 2."""
+    r = P + 8 and P + 16 buckets (3 pairs each) run as launches of 2 and 1,
+    and the narrower r = P bucket's 4 pairs fit one launch."""
     calls = []
     pairs = mixed_pairs(22)
     port_al = port_aligner.create_aligner(MAX_LEN, MAX_LEN, len(pairs),
@@ -112,12 +122,11 @@ def test_band_buckets_split_into_chunks(monkeypatch):
         return nw_fn(q, qlen, t, tlen, r)
 
     monkeypatch.setattr(port_al, "_nw", counting_nw)
-    monkeypatch.setattr(port_aligner.Aligner, "MEM_BUDGET_PER_DISPATCH",
-                        budget_for(2))
+    monkeypatch.setattr(banded, "MEM_BUDGET_PER_DISPATCH", budget_for(2))
     for a, b in pairs:
         port_al.add_alignment(a, b)
     port_al.align_all()
-    assert calls == [(P, 2), (P, 2), (P + 8, 2), (P + 8, 1), (P + 16, 2),
+    assert calls == [(P, 4), (P + 8, 2), (P + 8, 1), (P + 16, 2),
                      (P + 16, 1)]
     _, qlen, _, tlen = port_al._pack()
     assert [(r, len(sel)) for r, sel in port_al._plan(qlen, tlen)] == calls
@@ -155,15 +164,34 @@ def test_cli_align_golden_on_cpu():
         assert buf.getvalue() == f.read()
 
 
+#: imports every module of the port, runs its CPU path through all four
+#: algorithms, and fails if any module of the JAX package or jax got loaded
+NO_JAX_PROBE = """
+import contextlib, io, pkgutil, sys, importlib
+import claragenomicsanalysis_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+from claragenomicsanalysis_tpu_torch import cli, create_aligner
+data = sys.argv[1]
+for alg in ("ukkonen", "myers", "hirschberg-myers"):
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["align", f"{data}/sample_queries.fasta",
+                         f"{data}/sample_targets.fasta", "--algorithm", alg,
+                         "--device", "cpu"]) == 0
+al = create_aligner(300, 300, 2, algorithm="banded-escalate", device="cpu")
+al.add_alignment("ACGT" * 50, "ACGT" * 48)
+assert al.get_alignments()[0].edit_distance == 8
+bad = sorted(n for n in sys.modules
+             if n in ("jax", "claragenomicsanalysis_tpu")
+             or n.startswith(("jax.", "claragenomicsanalysis_tpu.")))
+assert not bad, bad
+"""
+
+
 def test_port_imports_no_jax():
-    code = ("import sys, claragenomicsanalysis_tpu_torch, "
-            "claragenomicsanalysis_tpu_torch.cli, "
-            "claragenomicsanalysis_tpu_torch.models.aligner, "
-            "claragenomicsanalysis_tpu_torch.ops.convert; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
     env = dict(os.environ, PYTHONPATH=ROOT)
-    subprocess.run([sys.executable, "-c", code], check=True, env=env,
-                   cwd=ROOT, timeout=120)
+    subprocess.run([sys.executable, "-c", NO_JAX_PROBE, DATA], check=True,
+                   env=env, cwd=ROOT, timeout=300)
 
 
 def test_cuda_request_raises_without_card():
@@ -173,21 +201,73 @@ def test_cuda_request_raises_without_card():
         port_aligner.create_aligner(16, 16, 1, device="cuda")
 
 
+def long_and_short_pairs(seed: int) -> list[tuple[str, str]]:
+    """mixed_pairs plus pairs whose query splits two Hirschberg levels
+    deep, repeats and a pair far beyond the configured band."""
+    rng = np.random.default_rng(seed)
+    pairs = mixed_pairs(seed)
+    for _ in range(3):
+        a = generate_random_genome(int(rng.integers(70, MAX_LEN + 1)), rng)
+        pairs.append((a, mutate_sequence(a, 9, rng)[:MAX_LEN]))
+    pairs += [("AC" * 45, "AC" * 40), ("", "ACGT"), ("", ""),
+              ("ACGT" * 24, "TT")]
+    return pairs
+
+
 @pytest.mark.parametrize("algorithm",
                          ["myers", "hirschberg-myers", "banded-escalate"])
-def test_unported_algorithms_raise(algorithm):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        port_aligner.create_aligner(16, 16, 1, algorithm=algorithm,
+def test_algorithms_match_jax_aligner(algorithm):
+    """Statuses, distances, paths and CIGARs equal the JAX Aligner's (XLA
+    kind), the overlong pair included."""
+    pairs = long_and_short_pairs(25)
+    jax_al = jax_create_aligner(MAX_LEN, MAX_LEN, len(pairs), band_radius=P,
+                                algorithm=algorithm, backend="xla")
+    port_al = port_aligner.create_aligner(MAX_LEN, MAX_LEN, len(pairs),
+                                          band_radius=P, algorithm=algorithm,
+                                          device="cpu")
+    for a, b in pairs:
+        assert jax_al.add_alignment(a, b) == port_al.add_alignment(a, b)
+    want, got = jax_al.get_alignments(), port_al.get_alignments()
+    assert len(got) == len(want) == len(pairs)
+    for w, g in zip(want, got):
+        assert (g.status, g.edit_distance, g.path) == (
+            w.status, w.edit_distance, w.path)
+        assert g.convert_to_cigar() == w.convert_to_cigar()
+    statuses = [g.status for g in got]
+    assert statuses.count(StatusType.EXCEEDED_MAX_LENGTH) == 1
+    assert statuses.count(StatusType.SUCCESS) == len(got) - 1
+
+
+@pytest.mark.parametrize("algorithm", ["myers", "hirschberg-myers"])
+def test_cli_algorithms_equal_jax_cli(algorithm):
+    from claragenomicsanalysis_tpu import cli as jax_cli
+    files = [f"{DATA}/sample_queries.fasta", f"{DATA}/sample_targets.fasta"]
+    outs = []
+    for main, extra in ((jax_cli.main, []), (cli.main, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(["align", *files, "--algorithm", algorithm,
+                         "--print-alignments", *extra]) == 0
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]
+    assert len(outs[0].splitlines()) > 24
+
+
+def test_unknown_algorithm_raises():
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        port_aligner.create_aligner(16, 16, 1, algorithm="smith-waterman",
                                     device="cpu")
 
 
 @pytest.mark.cuda
-def test_aligner_on_card_matches_cpu(cuda_device):
-    pairs = mixed_pairs(24)
+@pytest.mark.parametrize("algorithm", port_aligner.ALGORITHMS)
+def test_aligner_on_card_matches_cpu(cuda_device, algorithm):
+    pairs = long_and_short_pairs(24)
     results = []
     for device in (cuda_device, "cpu"):
         al = port_aligner.create_aligner(MAX_LEN, MAX_LEN, len(pairs),
-                                         band_radius=P, device=device)
+                                         band_radius=P, algorithm=algorithm,
+                                         device=device)
         for a, b in pairs:
             al.add_alignment(a, b)
         results.append([(r.status, r.edit_distance, r.path)

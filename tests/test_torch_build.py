@@ -35,7 +35,7 @@ def test_kernel_times_records_no_plain_version_call():
         with pytest.raises(RuntimeError, match="nest"):
             with profiling.kernel_times():
                 pass
-    assert kt.count() == {} and kt.events == {}
+    assert kt.count() == {} and kt.events == {} and kt.largest == {}
     assert profiling._collector is None
 
 
@@ -47,5 +47,9 @@ def test_kernel_times_on_card():
     n = torch.full((2,), 8, dtype=torch.int32, device="cuda")
     with profiling.kernel_times() as kt:
         nw_diag.banded_nw_diag(q, n, q, n, 4)
-    assert kt.count() == {"nw_diag": 1}
+        nw_diag.banded_nw_diag(q[:1], n[:1], q[:1], n[:1], 4)
+    assert kt.count() == {"nw_diag": 2}
     assert kt.ms()["nw_diag"] > 0
+    # the larger launch's inputs, kept for a replay
+    assert kt.largest["nw_diag"][0].shape == (2, 8)
+    assert kt.largest["nw_diag"][4] == 4

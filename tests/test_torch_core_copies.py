@@ -1,0 +1,122 @@
+"""The port's own copies of the JAX package's framework-free modules
+(claragenomicsanalysis_tpu_torch/{core,io,utils}) against the originals."""
+
+import gzip
+import os
+
+import numpy as np
+import pytest
+
+from claragenomicsanalysis_tpu.core import config as jax_config
+from claragenomicsanalysis_tpu.core import status as jax_status
+from claragenomicsanalysis_tpu.cpu import nw_oracle
+from claragenomicsanalysis_tpu.io import fasta as jax_fasta
+from claragenomicsanalysis_tpu.utils import genomeutils as jax_genomeutils
+from claragenomicsanalysis_tpu.utils import mathutils as jax_mathutils
+from claragenomicsanalysis_tpu_torch.core import config, status
+from claragenomicsanalysis_tpu_torch.io import fasta
+from claragenomicsanalysis_tpu_torch.ops import banded
+from claragenomicsanalysis_tpu_torch.utils import cigar, genomeutils, mathutils
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("name", ["StatusType", "AlignmentType",
+                                  "AlignmentState"])
+def test_enums_equal(name):
+    ours, theirs = getattr(status, name), getattr(jax_status, name)
+    assert [(m.name, int(m)) for m in ours] == [(m.name, int(m))
+                                                for m in theirs]
+
+
+def test_cigar_maps_equal():
+    assert status.CIGAR_OP_COMPACT == jax_status.CIGAR_OP_COMPACT
+    assert status.CIGAR_OP_EXTENDED == jax_status.CIGAR_OP_EXTENDED
+
+
+def test_encode_decode_equal():
+    every_byte = bytes(range(256)).decode("latin-1")
+    assert genomeutils.encode(every_byte).tolist() == \
+        jax_genomeutils.encode(every_byte).tolist()
+    assert (genomeutils.BASES, genomeutils.PAD) == (jax_genomeutils.BASES,
+                                                    jax_genomeutils.PAD)
+    s = "ACGTNacgtRYN"
+    assert genomeutils.encode(s, 16).tolist() == \
+        jax_genomeutils.encode(s, 16).tolist()
+    codes = genomeutils.encode(s, 16)
+    assert genomeutils.decode(codes) == jax_genomeutils.decode(codes)
+    assert genomeutils.decode(codes, 14) == jax_genomeutils.decode(codes, 14)
+    with pytest.raises(ValueError):
+        genomeutils.encode("ACGT", 3)
+
+
+def test_round_up_equal():
+    for x in range(0, 40):
+        for m in (1, 8, 16, 128):
+            assert mathutils.round_up(x, m) == jax_mathutils.round_up(x, m)
+
+
+def test_aligner_config_and_plan_equal(monkeypatch):
+    """The config's padded shapes equal the JAX package's.  The port plans
+    its launches by its own traceback layout (ops.banded.launch_chunks, in
+    place of the TPU's core.bufferplan): every problem once, in order, and
+    each launch of more than one problem within the budget."""
+    for lq in (1, 7, 96, 1000, 10001):
+        for lt in (1, 8, 300, 10008):
+            for r in (0, 8, 63, 64, 200):
+                ours = config.AlignerConfig(lq, lt, 1000, r)
+                theirs = jax_config.AlignerConfig(lq, lt, 1000, r)
+                Lq, Lt = ours.padded_query_length, ours.padded_target_length
+                assert (Lq, Lt) == (theirs.padded_query_length,
+                                    theirs.padded_target_length)
+                per = banded.tb_bytes_per_problem(Lq, Lt, r)
+                for budget in (1, 1 << 20, 1 << 28):
+                    monkeypatch.setattr(banded, "MEM_BUDGET_PER_DISPATCH",
+                                        budget)
+                    chunks = banded.launch_chunks(range(1000), Lq, Lt, r)
+                    assert np.array_equal(np.concatenate(chunks),
+                                          np.arange(1000))
+                    assert all(len(c) * per <= budget or len(c) == 1
+                               for c in chunks)
+                    assert len(chunks) == -(-1000 // max(1, budget // per))
+
+
+def test_fasta_parser_equal(tmp_path):
+    fq = tmp_path / "reads.fq"
+    fq.write_text("@r1 desc\nACGT\n+\nIIII\n@r2\nGGNA\n+\nIIII\n")
+    fa = tmp_path / "wrapped.fa.gz"
+    with gzip.open(fa, "wt") as f:
+        f.write(">a x\nACG\r\nTT\n\n>b\n>c\nNNA\n")
+    paths = [os.path.join(ROOT, "data", n) for n in
+             ("sample_queries.fasta", "sample_targets.fasta")] + [fq, fa]
+    for path in paths:
+        ours = fasta.create_fasta_parser(path)
+        theirs = jax_fasta.FastaParser(str(path))    # pure-Python path
+        n = theirs.get_num_sequences()
+        assert ours.get_num_sequences() == n > 0
+        for i in range(n):
+            a, b = ours.get_sequence_by_id(i), theirs.get_sequence_by_id(i)
+            assert (a.name, a.seq) == (b.name, b.seq)
+    bad = tmp_path / "bad.txt"
+    bad.write_text("hello\n")
+    with pytest.raises(ValueError):
+        fasta.create_fasta_parser(bad)
+
+
+def test_cigar_and_format_equal():
+    rng = np.random.default_rng(8)
+    q = "".join(rng.choice(list("ACGT"), 150))
+    t = q[:40] + "GG" + q[45:]
+    path, _, _ = nw_oracle.align(q, t)
+    for extended in (False, True):
+        assert cigar.path_to_cigar(path, extended) == \
+            nw_oracle.path_to_cigar(path, extended)
+    assert cigar.path_to_cigar([]) == ""
+    with pytest.raises(ValueError):
+        cigar.path_to_cigar([0, 4])
+    for width in (80, 33):
+        assert cigar.format_alignment(path, q, t, width) == \
+            nw_oracle.format_alignment(path, q, t, width)
+    qc, tc = genomeutils.encode(q), genomeutils.encode(t)
+    assert cigar.format_alignment(path, qc, tc) == \
+        nw_oracle.format_alignment(path, qc, tc)
