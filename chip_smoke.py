@@ -29,12 +29,30 @@ Phases, one line or more each:
      take the banded re-run and must agree, and equal ``ukkonen`` wherever
      its score fits its radius (both are then the dense canonical path);
   9. ``cli align --algorithm myers|hirschberg-myers`` on the card and on the
-     CPU, byte for byte.
+     CPU, byte for byte;
+ 10. the four POA kernels (B7 topsort, B5 graph NW + traceback, B6 add, B8
+     consensus) against their plain versions at every launch of a run under
+     tight caps (node, clique and edge overflows), full and banded, with an
+     empty window, an empty first sequence, N bases, a first sequence over
+     the node cap and a 2-node graph against 60 bases (banded: sums on
+     NEG);
+ 11. ``cli poa`` on the card against the consensus golden, and ``--banded``
+     on the card and the CPU, byte for byte;
+ 12. the ``poa`` main path, ``create_batch(..., device="cuda")`` then
+     ``get_consensus``, at the read-correction polish's window shape: 4,096
+     windows of 8 copies of a 128-base backbone with 6 edits each; its
+     rates, checks (all SUCCESS, the CPU plain path on 64 windows, the
+     consensus closer to the backbone than a support), launch counts and
+     each kernel against its plain version at its largest launch, with
+     times and bounds;
+ 13. the same for 512 deep windows (16 copies of a 256-base backbone, 12
+     edits each, N = 1,024, 16 pred slots), banded.
 Then one JSON line describing every kernel: under ``paths``, for each main
-path (``ukkonen``, ``myers``), its launches in that run (counts zeroed just
-before it, read just after) and the kernel's time, plain time and bound (the
-least time the card could take for the same work) at that path's largest
-launch, and the kernel's device time in that run (``run_ms``); at the top
+path (``ukkonen``, ``myers``, ``poa``, ``poa_deep``), its launches in that
+run (counts zeroed just before it, read just after) and the kernel's time,
+plain time and bound (the least time the card could take for the same work)
+at that path's largest launch, and the kernel's device time in that run
+(``run_ms``); at the top
 level the sum of the launches, the largest difference from the plain
 version seen anywhere, and the times of the path where the kernel spent the
 most device time.  Last ``{"ok": true, "device":
@@ -126,12 +144,22 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+ALIGNER_KERNELS = ("nw_diag", "tb_decode", "myers")
+POA_KERNELS = ("poa_topsort", "poa_nwtb", "poa_add", "poa_consensus")
+
+
 def wrappers() -> dict:
     """The kernel wrappers, by kernel name; each counts its launches."""
-    from claragenomicsanalysis_tpu_torch.ops import myers, nw_diag, tb_decode
+    from claragenomicsanalysis_tpu_torch.ops import (myers, nw_diag, poa_add,
+                                                     poa_consensus, poa_nwtb,
+                                                     poa_topsort, tb_decode)
     return {"nw_diag": nw_diag.banded_nw_diag,
             "tb_decode": tb_decode.decode_diag,
-            "myers": myers.myers_bottom_row}
+            "myers": myers.myers_bottom_row,
+            "poa_topsort": poa_topsort.topsort,
+            "poa_nwtb": poa_nwtb.graph_nw_traceback,
+            "poa_add": poa_add.add_alignment,
+            "poa_consensus": poa_consensus.consensus}
 
 
 def zero_launches() -> None:
@@ -139,8 +167,9 @@ def zero_launches() -> None:
         fn.launches = 0
 
 
-def read_launches() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+def read_launches(names=ALIGNER_KERNELS) -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()
+            if name in names}
 
 
 def bound(ops: float, nbytes: float, sm_mhz: float) -> tuple[float, str]:
@@ -733,6 +762,419 @@ def phase_cli_algorithms():
               f"cuda and cpu")
 
 
+# ------------------------------------------------------------------ POA
+
+POA_CAPS = dict(max_sequence_size=32, max_sequences_per_poa=6,
+                max_pred_per_node=2, max_aligned_per_node=2,
+                max_nodes_per_window=40)
+#: models/correct.py's polish batch at CorrectConfig()'s window_length=128
+#: and max_support=7 (depth 8)
+POA_CORR = dict(max_sequence_size=256, max_nodes_per_window=384,
+                max_sequences_per_poa=8, max_pred_per_node=8,
+                max_aligned_per_node=4)
+#: scripts/bench_all.py's deep pileups
+POA_DEEP = dict(max_sequence_size=512, max_sequences_per_poa=16,
+                max_pred_per_node=16, max_aligned_per_node=8,
+                max_nodes_per_window=1024)
+N_POA = 4096             # correction-shape windows (phase 12)
+N_POA_DEEP = 512         # deep windows (phase 13)
+N_POA_PLAIN = 64         # windows re-run through the plain path on the CPU
+# int32 operations per unit of work, counted for the POA bounds (PERF.md)
+OPS_NW_CELL = 6          # B5 per live cell, plus 2 per pred slot read
+OPS_ADD_STEP = 20        # B6 per base taken, plus 2 per filled pred and
+                         # clique slot of the node it lands on
+OPS_NODE = 4             # B7 / B8 per active node, plus 2 per pred slot
+
+
+def maxdiff(a, b) -> int:
+    """Largest absolute difference over two tuples of integer tensors."""
+    return max((int((x.long() - y.long()).abs().max()) if x.numel() else 0)
+               for x, y in zip(a, b))
+
+
+def poa_window_arrays(n: int, blen: int, depth: int, edits: int, L: int,
+                      seed: int):
+    """n windows, each ``depth`` copies of a seeded ``blen``-base backbone
+    with ``edits`` random edits (weights 1): (backbones, windows as strings,
+    seqs/weights (n, depth, L), lens (n, depth), n_seqs (n,)) NumPy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    seqs = np.full((n, depth, L), -1, np.int32)
+    lens = np.zeros((n, depth), np.int32)
+    backbones, windows = [], []
+    for wi in range(n):
+        b = rng.integers(0, 4, blen).astype(np.int32)
+        backbones.append(to_str(b))
+        win = []
+        for si in range(depth):
+            m = mutate(b, edits, rng)[:L]
+            seqs[wi, si, :len(m)] = m
+            lens[wi, si] = len(m)
+            win.append(to_str(m))
+        windows.append(win)
+    weights = (seqs >= 0).astype(np.int32)
+    return backbones, windows, (seqs, weights, lens,
+                                np.full(n, depth, np.int32))
+
+
+@contextlib.contextmanager
+def probe_poa(compare: bool):
+    """Inside the block, models.poa's four kernel calls still launch their
+    kernels and, with ``compare``, also run their plain versions on the same
+    inputs; yields {"err": the largest difference seen, "cells": the real
+    graph-NW cells, alive node_count * (slen + 1) per add}."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.models import poa
+    from claragenomicsanalysis_tpu_torch.ops import (poa_add, poa_consensus,
+                                                     poa_nwtb, poa_topsort)
+    stats = {"err": 0, "cells": 0}
+    plains = {"topsort": poa_topsort.topsort_torch,
+              "graph_nw_traceback": poa_nwtb.graph_nw_traceback_torch,
+              "add_alignment": poa_add.add_alignment_torch,
+              "consensus": poa_consensus.consensus_torch}
+    kernels = {name: getattr(poa, name) for name in plains}
+
+    def probe(name):
+        def run(*args):
+            out = kernels[name](*args)
+            if compare:
+                torch.cuda.synchronize()
+                stats["err"] = max(stats["err"],
+                                   maxdiff(out, plains[name](*args)))
+            if name == "graph_nw_traceback":
+                slen, nc, alive = args[7:10]
+                stats["cells"] += int((alive.long() * nc.clamp(
+                    max=args[1].shape[1]) * (slen + 1)).sum())
+            return out
+        return run
+
+    for name in plains:
+        setattr(poa, name, probe(name))
+    try:
+        yield stats
+    finally:
+        for name, fn in kernels.items():
+            setattr(poa, name, fn)
+
+
+def run_poa_arrays(bs, banded: bool, arrays, compare: bool):
+    """models.poa.run_windows on these windows, all in one launch per step,
+    under probe_poa -> (codes, covs, length, status, probe stats)."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import PoaScores
+    from claragenomicsanalysis_tpu_torch.models import poa
+    with probe_poa(compare) as stats:
+        out = poa.run_windows(bs, PoaScores(), banded,
+                              *(torch.from_numpy(a).cuda() for a in arrays))
+    return out + (stats,)
+
+
+def phase_poa_kernels() -> dict:
+    """Phase 10: B7, B5, B6 and B8 against their plain versions at every
+    launch of a 5-add run, arrays equal, under tight caps (node, clique and
+    edge overflows all hit), full and banded; the batch holds an empty
+    window, an empty first sequence, N bases, a first sequence over
+    max_nodes_per_window and a 2-node graph against 60 bases."""
+    import numpy as np
+    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
+    errs = {}
+    for banded in (False, True):
+        bs = BatchSize(**POA_CAPS, band_width=16 if banded else 256)
+        S, L = bs.max_sequences_per_poa, bs.padded_seq
+        _, _, (seqs, weights, lens, n_seqs) = poa_window_arrays(
+            64, 24, S, 8, L, SEED + 10 + banded)
+        seqs[1, 1:3, 5:8] = -1                  # N bases inside sequences
+        n_seqs[2] = 0                           # an empty window
+        seqs[2], lens[2] = -1, 0
+        seqs[3, 0], lens[3, 0] = -1, 0          # an empty first sequence
+        long_first = np.random.default_rng(SEED).integers(0, 4, 44)
+        seqs[4, 0, :44], lens[4, 0] = long_first, 44   # over max_nodes 40
+        # a 2-node graph against 60 bases: banded, sums on NEG
+        seqs[5, 0, :2], lens[5, 0] = long_first[:2], 2
+        seqs[5, 1, :60], lens[5, 1] = np.resize(long_first, 60), 60
+        weights = ((seqs >= 0) * (1 + np.arange(L) % 3)).astype(np.int32)
+        out = run_poa_arrays(bs, banded, (seqs, weights, lens, n_seqs), True)
+        statuses = sorted(set(out[3].tolist()))
+        errs[banded] = out[4]["err"]
+        kind = "banded, width 16" if banded else "full"
+        print(f"phase 10 poa kernels ({kind}"
+              f", 64 windows, S={S} P=2 A=2 N={bs.padded_nodes}): every "
+              f"launch of B7/B5/B6/B8 vs its plain version, max diff "
+              f"{errs[banded]}; final statuses {statuses}")
+        check(errs[banded] == 0,
+              "a POA kernel disagrees with its plain version")
+        check({0, 23, 24, 28} <= set(statuses),
+              "the edge batch must reach SUCCESS, node and edge overflow and "
+              "the band status")
+    return max(errs.values())
+
+
+def phase_poa_cli():
+    """Phase 11: cli poa on the card against the golden; --banded on the
+    card and the CPU, byte for byte."""
+    from claragenomicsanalysis_tpu_torch import cli
+    data = os.path.join(ROOT, "data")
+    with open(os.path.join(data, "golden", "sample_consensus.txt")) as f:
+        golden = f.read()
+    outs = {}
+    for extra in ([], ["--banded"]):
+        for device in ("cuda", "cpu") if extra else ("cuda",):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["poa", f"{data}/sample-windows.txt", "--device",
+                               device] + extra)
+            check(rc == 0, f"cli poa {extra} --device {device} failed")
+            outs[(bool(extra), device)] = buf.getvalue()
+    same = outs[(False, "cuda")] == golden
+    banded = outs[(True, "cuda")] == outs[(True, "cpu")]
+    print(f"phase 11 golden: poa --device cuda vs data/golden/"
+          f"sample_consensus.txt: {'identical' if same else 'DIFFERENT'} "
+          f"({len(golden.splitlines())} lines); poa --banded cuda vs cpu: "
+          f"{'identical' if banded else 'DIFFERENT'}")
+    check(same, "poa output differs from data/golden/sample_consensus.txt")
+    check(banded, "poa --banded differs between cuda and cpu")
+
+
+def poa_bounds(kt, outs: dict) -> dict:
+    """Each POA kernel's work at its largest launch of the run (CUDA-event
+    timed, kernel_times keeps its inputs; ``outs`` holds the kernels'
+    outputs there), counted from that launch's data: int32 operations
+    and bytes of the function itself, whatever method the kernel uses.
+    Reads: the per-node arrays of active nodes, the filled pred slots and
+    the real sequence; writes: the outputs.  -> {kernel: (ops, bytes,
+    what)}."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops.poa_state import NEG
+    out = {}
+
+    def live(nc, npred, pred):
+        """Active nodes (W, N) and their filled pred slots (W, N, P)."""
+        W, N, P = pred.shape
+        act_n = torch.arange(N, device=nc.device)[None, :] < nc[:, None]
+        slot = (torch.arange(P, device=nc.device)[None, None, :]
+                < npred[:, :, None]) & act_n[:, :, None]
+        return act_n, slot
+
+    # B5: the DP over the (row, column) cells the band leaves (every column
+    # 0..slen without one), then the end cell and the path
+    seq, order, rank, npred, base, nsucc, pred, slen, nc, alive = \
+        kt.largest["poa_nwtb"][:10]
+    band_width = kt.largest["poa_nwtb"][11]
+    W, N, P = pred.shape
+    act_n, slot = live(nc, npred, pred)
+    rows = act_n & alive[:, None]
+    r = torch.arange(N, device=nc.device)[None, :]
+    lo = torch.zeros_like(rows, dtype=torch.int64)
+    hi = slen[:, None].long().expand(W, N)
+    if band_width > 0:
+        c = torch.div((r + 1) * slen[:, None], nc[:, None] + 1,
+                      rounding_mode="floor")
+        lo = (c - band_width // 2).clamp(min=0)
+        hi = torch.minimum(c + band_width // 2, hi)
+    width = torch.where(rows, (hi - lo + 1).clamp(min=0), 0)
+    npred_r = npred.gather(1, order.long())        # row r is node order[r]
+    cells = int(width.sum())
+    TL = N + seq.shape[1]
+    out["poa_nwtb"] = (
+        int((width * (OPS_NW_CELL + 2 * npred_r)).sum()),
+        4 * (5 * int(rows.sum()) + int((slot & rows[:, :, None]).sum())
+             + int(torch.where(alive, slen, 0).sum())) + 8 * W * TL + 17 * W,
+        f"{cells} cells in the band" if band_width > 0
+        else f"{cells} live cells")
+
+    # B6: each path step from k0 reads pn and pp; a step that takes a base
+    # also reads it and its weight, reads the line of the node it lands on
+    # (5 words, its filled pred and predw slots and clique members; none
+    # for a new node) and writes 5 words (cov, npred, a pred slot and its
+    # weight, the previous node's nsucc)
+    state, pn, pp, seq, weights, k0, act = kt.largest["poa_add"][:7]
+    W, TL = pn.shape
+    on = act[:, None] & (torch.arange(TL, device=k0.device)[None, :]
+                         >= k0[:, None])
+    take = on & (pp >= 0)
+    old = take & (pn >= 0)
+    node = pn.clamp(min=0).long()
+    preds, clique = (int(torch.where(old, t.gather(1, node), 0).sum())
+                     for t in (state.npred, state.nalig))
+    steps, takes = int(on.sum()), int(take.sum())
+    out["poa_add"] = (OPS_ADD_STEP * takes + 2 * (preds + clique),
+                      8 * steps + 28 * takes
+                      + 4 * (5 * int(old.sum()) + 2 * preds + clique) + 21 * W,
+                      f"{steps} path steps, {takes} bases")
+
+    # B7: longest-path levels in one pass in topological order (each node
+    # once, each filled pred slot once), then each node placed once
+    level, npred, pred, nc = kt.largest["poa_topsort"]
+    act_n, slot = live(nc, npred, pred)
+    nodes, edges = int(act_n.sum()), int(slot.sum())
+    W, N = npred.shape
+    out["poa_topsort"] = (OPS_NODE * nodes + 2 * edges,
+                          4 * (2 * nodes + edges + W) + 12 * W * N + 4 * W,
+                          f"{nodes} nodes, {edges} edges")
+
+    # B8: each node's score once in topological order (the max weight over
+    # its filled slots, the max score over the tied ones), then the
+    # backtrack, one step (and one base and coverage read) per consensus
+    # base
+    npred, pred, predw, base, cov, rank, nc, MC = kt.largest["poa_consensus"]
+    act_n, slot = live(nc, npred, pred)
+    W, N = npred.shape
+    w = torch.where(slot, predw, NEG)
+    tie = slot & (w == w.max(2).values[:, :, None])
+    nodes, edges = int(act_n.sum()), int(slot.sum())
+    length = int(outs["poa_consensus"][2].sum())
+    out["poa_consensus"] = (
+        OPS_NODE * nodes + 2 * edges + 2 * int(tie.sum()) + length,
+        4 * (2 * nodes + 2 * length + 2 * edges + W) + 8 * W * MC + 4 * W,
+        f"{nodes} nodes, {edges} edges")
+    return out
+
+
+def edit_distances(pairs) -> "np.ndarray":
+    """Edit distances of (a, b) pairs through the port's ukkonen aligner on
+    the card."""
+    import numpy as np
+    _, res, _ = run_aligner(pairs, "ukkonen")
+    return np.array([r.edit_distance for r in res])
+
+
+def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
+                   banded: bool, sm_mhz: float) -> dict:
+    """Phases 12 and 13: a POA main path through create_batch(...,
+    device="cuda"), add_poa_group, generate_poa and get_consensus, with its
+    checks, launch counts, kernel times and bounds."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
+    from claragenomicsanalysis_tpu_torch.core.status import StatusType
+    from claragenomicsanalysis_tpu_torch.models import poa
+    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    bs = BatchSize(**cfg)
+    S, N, L = bs.max_sequences_per_poa, bs.padded_nodes, bs.padded_seq
+    t0 = time.perf_counter()
+    backbones, windows, arrays = poa_window_arrays(n, blen, S, edits, L,
+                                                   SEED + 20 + S)
+    t_data = time.perf_counter() - t0
+    batch = poa.create_batch(bs, max_poas=n, banded_alignment=banded,
+                             device="cuda")
+    for w in windows:
+        batch.add_poa_group(w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with kernel_times() as kt:
+        batch.generate_poa()
+        cons, covs, stats = batch.get_consensus()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(POA_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    chunks = poa.launch_chunks(n, bs)
+    want = {"poa_topsort": len(chunks) * S, "poa_nwtb": len(chunks) * (S - 1),
+            "poa_add": len(chunks) * (S - 1), "poa_consensus": len(chunks)}
+    check(launches == want, f"{tag}: launches {launches} != {want} "
+          f"({len(chunks)} launches of windows)")
+    check(kt.count() == launches, f"{tag}: timed launches {kt.count()}")
+    dev_ms = kt.ms()
+    busy = sum(dev_ms.values())
+    n_ok = sum(s == StatusType.SUCCESS for s in stats)
+
+    # the same windows through the kernels in one launch each: their real
+    # graph-NW cells, and the outputs must equal the batch's
+    codes, _, length, status, probed = run_poa_arrays(bs, banded, arrays,
+                                                      False)
+    cells = probed["cells"]
+    same = all(st == StatusType(int(status[i])) for i, st in enumerate(stats))
+    same &= all(c == "".join("ACGT"[x] if x >= 0 else "N"
+                             for x in codes[i, :int(length[i])].tolist())
+                for i, c in enumerate(cons))
+    padded = n * (S - 1) * N * (L + 1)
+    bases = sum(len(c) for c in cons)
+    print(f"{tag} main path: {n} windows of {S} x {blen}-base pileups "
+          f"({edits} edits each){', banded' if banded else ''}, BatchSize("
+          f"{', '.join(f'{k}={v}' for k, v in cfg.items())}), N={N} L={L}; "
+          f"data made in {t_data:.1f} s")
+    print(f"{tag} end to end: {wall:.3f} s = {n / wall:.1f} windows/s = "
+          f"{bases / wall / 1e6:.4f} M consensus bases/s; graph-NW "
+          f"{cells / wall / 1e9:.4f} G real cells/s ({cells} = alive "
+          f"node_count x (slen + 1) per add), {padded / wall / 1e9:.4f} G "
+          f"padded cells/s ({padded} = N x (L + 1) per add); kernel share "
+          f"{busy / (wall * 1e3):.4f} ({busy:.2f} ms of {wall * 1e3:.1f} ms)"
+          f"; {len(chunks)} launches of windows ({[len(c) for c in chunks]}"
+          f"); max_memory_allocated={peak} B")
+    print(f"{tag} checks: {n_ok}/{n} SUCCESS; the kernels driven in one "
+          f"launch of all windows give the same consensus and statuses: "
+          f"{same}")
+    check(n_ok == n, f"{tag}: only {n_ok} of {n} windows SUCCESS")
+    check(same, f"{tag}: one launch of all windows differs from the batch")
+
+    # the plain path (CPU) on a subset
+    sub = list(range(0, n, n // N_POA_PLAIN))[:N_POA_PLAIN]
+    cpu = poa.create_batch(bs, max_poas=len(sub), banded_alignment=banded,
+                           device="cpu")
+    for i in sub:
+        cpu.add_poa_group(windows[i])
+    t0 = time.perf_counter()
+    c_cons, c_covs, c_stats = cpu.get_consensus()
+    t_cpu = time.perf_counter() - t0
+    plain_same = (c_cons == [cons[i] for i in sub]
+                  and c_covs == [covs[i] for i in sub]
+                  and c_stats == [stats[i] for i in sub])
+    print(f"{tag} plain path: {len(sub)} windows through Batch(device="
+          f'"cpu") in {t_cpu:.1f} s: consensus, coverage and statuses '
+          f"equal the card's: {plain_same}")
+    check(plain_same, f"{tag}: the plain path differs from the card's")
+
+    # accuracy: edit distance to the backbone, consensus vs one support
+    d_cons = edit_distances(list(zip(cons, backbones)))
+    d_sup = edit_distances([(w[0], b) for w, b in zip(windows, backbones)])
+    print(f"{tag} accuracy: median edit distance to the backbone "
+          f"{float(np.median(d_cons)):.1f} for the consensus vs "
+          f"{float(np.median(d_sup)):.1f} for a support (mean "
+          f"{float(d_cons.mean()):.3f} vs {float(d_sup.mean()):.3f})")
+    check(np.median(d_cons) < np.median(d_sup),
+          f"{tag}: the consensus is not closer to the backbone than a "
+          f"support")
+
+    # each kernel at its largest launch against its plain version
+    from claragenomicsanalysis_tpu_torch.ops import (poa_add, poa_consensus,
+                                                     poa_nwtb, poa_topsort)
+    pairs = {"poa_topsort": (poa_topsort.topsort, poa_topsort.topsort_torch),
+             "poa_nwtb": (poa_nwtb.graph_nw_traceback,
+                          poa_nwtb.graph_nw_traceback_torch),
+             "poa_add": (poa_add.add_alignment, poa_add.add_alignment_torch),
+             "poa_consensus": (poa_consensus.consensus,
+                               poa_consensus.consensus_torch)}
+    timed, outs = {}, {}
+    for k, (kernel, plain) in pairs.items():
+        args = kt.largest[k]
+        ms, outs[k] = cuda_ms(lambda: kernel(*args), 5)
+        ms_p, out_p = cuda_ms(lambda: plain(*args), 1)
+        timed[k] = ms, ms_p, maxdiff(outs[k], out_p)
+    work = poa_bounds(kt, outs)
+    per = {}
+    for k in pairs:
+        args = kt.largest[k]
+        ms, ms_p, err = timed[k]
+        ops, nbytes, what = work[k]
+        b = bound(ops, nbytes, sm_mhz)
+        each = [s.elapsed_time(e) for s, e in kt.events[k]]
+        W = args[0].shape[0] if torch.is_tensor(args[0]) else \
+            args[0].base.shape[0]
+        shape = f"W={W} N={N} L={L} P={bs.max_pred_per_node}"
+        print(f"{tag} {k}: {launches[k]} launches, {dev_ms[k]:.3f} ms in "
+              f"the run (largest launch {max(each):.3f} ms by its events); "
+              f"replayed at the largest launch ({shape}): kernel {ms:.3f} ms "
+              f"vs plain {ms_p:.1f} ms, max diff {err}; bound {what}, "
+              f"{ops} int32 ops, {nbytes} B -> {b[0]:.4f} ms ({b[1]})")
+        check(err == 0, f"{tag}: {k} disagrees with its plain version at its "
+              f"largest launch")
+        per[k] = {"shape": shape, "ms": ms, "plain_ms": ms_p, "bound": b,
+                  "err": err, "launches": launches[k], "run_ms": dev_ms[k]}
+    return per
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -743,7 +1185,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
 
     sm_mhz = phase_env()
-    err_nw, err_tb = phase_kernels(np.random.default_rng(SEED))
+    errs = {}
+    errs["nw_diag"], errs["tb_decode"] = phase_kernels(
+        np.random.default_rng(SEED))
     phase_golden()
     t0 = time.perf_counter()
     pairs = main_path_pairs(N_PAIRS, SEED)
@@ -752,18 +1196,25 @@ def main() -> int:
           f"{max(len(b) for _, b in pairs)}, made in "
           f"{time.perf_counter() - t0:.1f} s")
     ukk = phase_main(pairs, sm_mhz)
-    err_my = phase_myers_edges(np.random.default_rng(SEED + 3))
+    errs["myers"] = phase_myers_edges(np.random.default_rng(SEED + 3))
     paths = {"ukkonen": ukk["kernels"],
              "myers": phase_myers_main(pairs, ukk, sm_mhz)}
     phase_short_reads()
     phase_cli_algorithms()
+    errs |= dict.fromkeys(POA_KERNELS, phase_poa_kernels())
+    phase_poa_cli()
+    paths["poa"] = phase_poa_main("phase 12", POA_CORR, N_POA, 128,
+                                  max(5, 128 // 20), False, sm_mhz)
+    paths["poa_deep"] = phase_poa_main("phase 13", POA_DEEP, N_POA_DEEP, 256,
+                                       12, True, sm_mhz)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "claragenomicsanalysis_tpu")
                     or m.startswith(("jax.", "claragenomicsanalysis_tpu.")))
     check(not loaded, f"the port loaded the JAX package or jax: {loaded}")
 
-    errs = {"nw_diag": err_nw, "tb_decode": err_tb, "myers": err_my}
+    csrc = "claragenomicsanalysis_tpu_torch/csrc"
+    v2 = "claragenomicsanalysis_tpu/ops/poa_pallas2.py"
     meta = {
         "nw_diag": ("claragenomicsanalysis_tpu_torch/csrc/nw_diag.cu",
                     "claragenomicsanalysis_tpu/ops/nw_diag_pallas.py:93"),
@@ -771,10 +1222,14 @@ def main() -> int:
                       "claragenomicsanalysis_tpu/ops/tb_decode_pallas.py:33"),
         "myers": ("claragenomicsanalysis_tpu_torch/csrc/myers.cu",
                   "claragenomicsanalysis_tpu/ops/myers_pallas.py:39"),
+        "poa_nwtb": (f"{csrc}/poa_nwtb.cu", f"{v2}:193"),
+        "poa_add": (f"{csrc}/poa_add.cu", f"{v2}:640"),
+        "poa_topsort": (f"{csrc}/poa_topsort.cu", f"{v2}:1006"),
+        "poa_consensus": (f"{csrc}/poa_consensus.cu", f"{v2}:1196"),
     }
     kernels = []
     for k, (src, rep) in meta.items():
-        runs = {p: v[k] for p, v in paths.items()}
+        runs = {p: v[k] for p, v in paths.items() if k in v}
         timed = {p: v for p, v in runs.items() if "ms" in v}
         top = max(timed.values(), key=lambda v: v["run_ms"])
         kernels.append({

@@ -5,9 +5,10 @@ The port mirrors the JAX package's layout (``core/``, ``io/``, ``ops/``,
 ``align/``, ``models/``, ``utils/``, ``cli.py``).  It imports nothing of
 ``claragenomicsanalysis_tpu``: of the JAX package's framework-free modules it
 keeps its own copies of the parts it runs, under the same module names
-(``core.status``, ``core.config``, ``io.fasta``,
+(``core.status``, ``core.config``, ``io.fasta``, ``io.windows``,
 ``utils.genomeutils``, ``utils.mathutils``; ``utils.cigar`` holds the CIGAR
-and pretty-print helpers of ``cpu/nw_oracle.py``).  Every kernel is written
+and pretty-print helpers of ``cpu/nw_oracle.py``).  It runs the aligner
+(``create_aligner``) and POA consensus (``create_batch``).  Every kernel is written
 by hand for ``sm_90a`` under ``csrc/`` and built with ``nvcc`` at first use;
 beside each one a plain PyTorch version defines the same output and runs on
 CPU tensors.  The package imports ``torch`` and never ``jax``.
@@ -24,6 +25,8 @@ def __getattr__(name):
         "create_aligner": "claragenomicsanalysis_tpu_torch.models.aligner",
         "Aligner": "claragenomicsanalysis_tpu_torch.models.aligner",
         "Alignment": "claragenomicsanalysis_tpu_torch.models.aligner",
+        "create_batch": "claragenomicsanalysis_tpu_torch.models.poa",
+        "Batch": "claragenomicsanalysis_tpu_torch.models.poa",
     }
     if name in lazy:
         return getattr(importlib.import_module(lazy[name]), name)

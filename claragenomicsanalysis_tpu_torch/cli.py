@@ -1,14 +1,17 @@
-"""Command-line interface of the port: the ``align`` subcommand.
+"""Command-line interface of the port: the ``align`` and ``poa``
+subcommands.
 
-Run as ``python -m claragenomicsanalysis_tpu_torch.cli align q.fa t.fa``.
-Output and flags are those of ``claragenomicsanalysis_tpu.cli align``, plus
-``--device {cuda,cpu}``; the JAX package's ``-d/--devices`` mesh flag has no
-counterpart yet.
+Run as ``python -m claragenomicsanalysis_tpu_torch.cli align q.fa t.fa`` or
+``... cli poa windows.txt``.  Output and flags are those of the JAX
+package's ``cli align`` and ``cli poa``, plus ``--device {cuda,cpu}``; the
+JAX package's ``-d/--devices`` mesh flag has no counterpart yet, and
+``poa --msa`` fails until the port computes the MSA.
 """
 
 import argparse
 import sys
 
+from .core.config import BatchSize
 from .core.status import StatusType
 from .io.fasta import create_fasta_parser
 
@@ -37,6 +40,32 @@ def cmd_align(args) -> int:
     return 0
 
 
+def cmd_poa(args) -> int:
+    from .io.windows import read_windows
+    from .models.poa import create_batch
+    if args.msa:
+        print("error: poa --msa is not available in this package yet "
+              "(ROADMAP A.4)", file=sys.stderr)
+        return 2
+    windows = read_windows(args.windows, max_windows=args.max_windows or None)
+    max_len = max((len(s) for w in windows for s in w), default=1)
+    max_seqs = max((len(w) for w in windows), default=1)
+    bs = BatchSize(max_sequence_size=max(64, max_len),
+                   max_sequences_per_poa=max(2, max_seqs),
+                   band_width=args.band_width)
+    batch = create_batch(batch_size=bs, max_poas=len(windows),
+                         banded_alignment=args.banded, device=args.device)
+    for w in windows:
+        batch.add_poa_group(w)
+    cons, _, stats = batch.get_consensus()
+    for c, st in zip(cons, stats):
+        if st == StatusType.SUCCESS:
+            print(c)
+        else:
+            print(f"*\t{st.name}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="claragenomicsanalysis_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -50,6 +79,17 @@ def main(argv=None) -> int:
     a.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the DP runs (cuda: the hand-written kernels)")
     a.set_defaults(fn=cmd_align)
+    p = sub.add_parser("poa", help="POA consensus over a window file")
+    p.add_argument("windows")
+    p.add_argument("--msa", action="store_true",
+                   help="not available yet: exits with an error")
+    p.add_argument("--max-windows", type=int, default=0)
+    p.add_argument("--banded", action="store_true",
+                   help="static-banded graph NW (cudapoa banded_alignment)")
+    p.add_argument("--band-width", type=int, default=256)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the POA runs (cuda: the hand-written kernels)")
+    p.set_defaults(fn=cmd_poa)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -53,6 +53,13 @@ class AlignmentState(enum.IntEnum):
     DELETION = 3    # consumes target
 
 
+class OutputType(enum.IntFlag):
+    """POA batch output selection."""
+
+    CONSENSUS = 1
+    MSA = 2
+
+
 #: CIGAR op letter per AlignmentState in compact (M/I/D) form: match and
 #: mismatch both fold into 'M'
 CIGAR_OP_COMPACT = {0: "M", 1: "M", 2: "I", 3: "D"}

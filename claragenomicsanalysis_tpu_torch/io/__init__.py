@@ -1,2 +1,2 @@
-"""Input parsing of the port (copy of the pure-Python FASTA/FASTQ parser of
-``claragenomicsanalysis_tpu.io``)."""
+"""Input parsing of the port (copies of the pure-Python FASTA/FASTQ parser
+and the POA window files of ``claragenomicsanalysis_tpu.io``)."""

@@ -1,1 +1,2 @@
-"""The port's model layer: the batched pairwise aligner."""
+"""The port's model layer: the batched pairwise aligner and POA
+consensus."""

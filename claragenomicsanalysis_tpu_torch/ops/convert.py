@@ -1,4 +1,5 @@
-"""Carry the packed problem arrays and the traceback across the two packages.
+"""Carry arrays across the two packages: the aligner's packed problems and
+traceback, and the POA graph state.
 
 The JAX package's arrays (``claragenomicsanalysis_tpu``) are ``q``/``t``
 (B, L) int8 codes with -1 PAD, ``qlen``/``tlen`` (B,) int32 and the
@@ -53,3 +54,30 @@ def to_reference(q, qlen, t, tlen, tb=None) -> tuple:
               for n, a in arrays.items()}
     _check_batch(arrays)
     return tuple(arrays.values())
+
+
+def poa_state_from_reference(state, device="cpu"):
+    """The JAX package's POA state, vmapped over windows (``poa_ops.PoaState``
+    or any object with its fields, as NumPy-convertible (W, ...) arrays) ->
+    the port's ``ops.poa_state.PoaState`` on ``device``.  The JAX state's
+    ``paths``, which only the MSA reads, is dropped."""
+    from .poa_state import PoaState
+    out = []
+    for name in PoaState._fields:
+        a = np.asarray(getattr(state, name))
+        if a.dtype != np.int32:
+            raise ValueError(f"{name}: want int32, got {a.dtype}")
+        out.append(torch.from_numpy(np.array(a)).to(device))
+    st = PoaState(*out)
+    W = st.node_count.shape[0]
+    if any(t.shape[0] != W for t in st):
+        raise ValueError("window counts of the state's fields disagree")
+    return st
+
+
+def poa_state_to_reference(state) -> dict:
+    """The port's ``PoaState`` -> a dict of NumPy arrays named as the JAX
+    ``PoaState``'s fields (``paths`` excepted), for
+    ``jax_state._replace(**d)``."""
+    return {name: t.detach().cpu().numpy()
+            for name, t in zip(state._fields, state)}

@@ -7,6 +7,7 @@ block.
         aligner.align_all()
     kt.ms()      # {"nw_diag": total ms, "tb_decode": total ms}
     kt.largest["nw_diag"]   # the inputs of its largest launch, to replay
+                            # (the latest of equally large ones)
 
 Outside such a block :func:`kernel_span` records nothing; inside it, each
 launch costs two event records on the launching stream, and the block keeps
@@ -37,7 +38,8 @@ def trace_range(name: str):
 class KernelTimes:
     """Start and end CUDA events of every timed launch, by kernel name, and
     the inputs of each kernel's largest launch (by the work its wrapper
-    counts)."""
+    counts; of equal ones the latest, which in a POA run is the one on the
+    grown graphs)."""
 
     def __init__(self):
         self.events: dict[str, list] = {}
@@ -75,7 +77,7 @@ def kernel_span(name: str, inputs: tuple = (), work: int = 0):
     if _collector is None:
         yield
         return
-    if work > _collector._largest_work.get(name, -1):
+    if work >= _collector._largest_work.get(name, -1):
         _collector._largest_work[name] = work
         _collector.largest[name] = inputs
     start = torch.cuda.Event(enable_timing=True)

@@ -165,7 +165,7 @@ def test_cli_align_golden_on_cpu():
 
 
 #: imports every module of the port, runs its CPU path through all four
-#: algorithms, and fails if any module of the JAX package or jax got loaded
+#: algorithms and POA consensus, and fails if any module of the JAX package or jax got loaded
 NO_JAX_PROBE = """
 import contextlib, io, pkgutil, sys, importlib
 import claragenomicsanalysis_tpu_torch as port
@@ -178,6 +178,9 @@ for alg in ("ukkonen", "myers", "hirschberg-myers"):
         assert cli.main(["align", f"{data}/sample_queries.fasta",
                          f"{data}/sample_targets.fasta", "--algorithm", alg,
                          "--device", "cpu"]) == 0
+with contextlib.redirect_stdout(io.StringIO()):
+    assert cli.main(["poa", f"{data}/sample-windows.txt", "--max-windows",
+                     "2", "--device", "cpu"]) == 0
 al = create_aligner(300, 300, 2, algorithm="banded-escalate", device="cpu")
 al.add_alignment("ACGT" * 50, "ACGT" * 48)
 assert al.get_alignments()[0].edit_distance == 8

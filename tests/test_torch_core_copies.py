@@ -11,10 +11,11 @@ from claragenomicsanalysis_tpu.core import config as jax_config
 from claragenomicsanalysis_tpu.core import status as jax_status
 from claragenomicsanalysis_tpu.cpu import nw_oracle
 from claragenomicsanalysis_tpu.io import fasta as jax_fasta
+from claragenomicsanalysis_tpu.io import windows as jax_windows
 from claragenomicsanalysis_tpu.utils import genomeutils as jax_genomeutils
 from claragenomicsanalysis_tpu.utils import mathutils as jax_mathutils
 from claragenomicsanalysis_tpu_torch.core import config, status
-from claragenomicsanalysis_tpu_torch.io import fasta
+from claragenomicsanalysis_tpu_torch.io import fasta, windows
 from claragenomicsanalysis_tpu_torch.ops import banded
 from claragenomicsanalysis_tpu_torch.utils import cigar, genomeutils, mathutils
 
@@ -22,7 +23,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("name", ["StatusType", "AlignmentType",
-                                  "AlignmentState"])
+                                  "AlignmentState", "OutputType"])
 def test_enums_equal(name):
     ours, theirs = getattr(status, name), getattr(jax_status, name)
     assert [(m.name, int(m)) for m in ours] == [(m.name, int(m))
@@ -120,3 +121,33 @@ def test_cigar_and_format_equal():
     qc, tc = genomeutils.encode(q), genomeutils.encode(t)
     assert cigar.format_alignment(path, qc, tc) == \
         nw_oracle.format_alignment(path, qc, tc)
+
+
+def test_poa_configs_equal():
+    """PoaScores and BatchSize: the same defaults, the same derived limits
+    (max_consensus_size, max_nodes_per_window) and padded shapes."""
+    assert vars(config.PoaScores()) == vars(jax_config.PoaScores())
+    for kw in ({}, dict(max_sequence_size=100), dict(max_sequence_size=48,
+               max_nodes_per_window=97, max_consensus_size=5),
+               dict(max_sequence_size=256, max_nodes_per_window=384,
+                    max_sequences_per_poa=8, max_pred_per_node=8,
+                    band_width=64)):
+        ours, theirs = config.BatchSize(**kw), jax_config.BatchSize(**kw)
+        assert vars(ours) == vars(theirs)
+        assert (ours.padded_nodes, ours.padded_seq) == (theirs.padded_nodes,
+                                                        theirs.padded_seq)
+    assert config.BatchSize() == config.BatchSize()      # frozen, hashable
+    assert hash(config.BatchSize(max_sequence_size=7)) is not None
+
+
+def test_read_write_windows_equal(tmp_path):
+    path = os.path.join(ROOT, "data", "sample-windows.txt")
+    for n in (None, 0, 1, 5):
+        assert windows.read_windows(path, n) == \
+            jax_windows.read_windows(path, n)
+    ws = [["ACGT", "ACG"], ["T"], ["GG", "GA", "G"]]
+    ours, theirs = tmp_path / "ours.txt", tmp_path / "theirs.txt"
+    windows.write_windows(ws, str(ours))
+    jax_windows.write_windows(ws, str(theirs))
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert windows.read_windows(str(ours)) == ws
