@@ -30,14 +30,17 @@ Phases, one line or more each:
      its score fits its radius (both are then the dense canonical path);
   9. ``cli align --algorithm myers|hirschberg-myers`` on the card and on the
      CPU, byte for byte;
- 10. the four POA kernels (B7 topsort, B5 graph NW + traceback, B6 add, B8
-     consensus) against their plain versions at every launch of a run under
-     tight caps (node, clique and edge overflows), full and banded, with an
-     empty window, an empty first sequence, N bases, a first sequence over
-     the node cap and a 2-node graph against 60 bases (banded: sums on
-     NEG);
- 11. ``cli poa`` on the card against the consensus golden, and ``--banded``
-     on the card and the CPU, byte for byte;
+ 10. the lockstep POA kernels (B7 topsort, B5 graph NW + traceback, B6 add
+     with the MSA's paths, B8 consensus, B9 MSA) against their plain
+     versions at every launch of a run under tight caps (node, clique and
+     edge overflows), full and banded, with an empty window, an empty first
+     sequence, N bases, a first sequence over the node cap and a 2-node
+     graph against 60 bases (banded: sums on NEG); then the
+     one-kernel-per-window POA (B10) on the same windows against the
+     lockstep loop over the plain versions, with and without the MSA;
+ 11. ``cli poa`` on the card against the consensus golden, ``--msa`` against
+     the MSA golden and the CPU, and ``--banded`` on the card and the CPU,
+     byte for byte;
  12. the ``poa`` main path, ``create_batch(..., device="cuda")`` then
      ``get_consensus``, at the read-correction polish's window shape: 4,096
      windows of 8 copies of a 128-base backbone with 6 edits each; its
@@ -46,9 +49,21 @@ Phases, one line or more each:
      each kernel against its plain version at its largest launch, with
      times and bounds;
  13. the same for 512 deep windows (16 copies of a 256-base backbone, 12
-     edits each, N = 1,024, 16 pred slots), banded.
+     edits each, N = 1,024, 16 pred slots), banded;
+ 14. the MSA main path, ``create_batch(..., output_mask=CONSENSUS | MSA,
+     device="cuda")`` then ``get_consensus`` and ``get_msa``, on 4,096
+     windows of 8 copies of a 100-base backbone with 5 edits each (N = 256,
+     4 pred slots): the same checks, the rows of every window (one length,
+     each row its sequence unless a shared column took bases of it), and
+     ``get_graphs`` on 64 windows against the final graph state;
+ 15. the one-kernel-per-window route (``kernel="window"``) on phase 14's
+     windows with the MSA and on phase 12's without: outputs equal to the
+     lockstep route's, its wall beside the lockstep route's on the same
+     data, B10 against its plain version at its largest launch; at phase
+     13's shape the route must refuse the plan with the sizes named.
 Then one JSON line describing every kernel: under ``paths``, for each main
-path (``ukkonen``, ``myers``, ``poa``, ``poa_deep``), its launches in that
+path (``ukkonen``, ``myers``, ``poa``, ``poa_deep``, ``poa_msa``,
+``poa_window``, ``poa_window_msa``), its launches in that
 run (counts zeroed just before it, read just after) and the kernel's time,
 plain time and bound (the least time the card could take for the same work)
 at that path's largest launch, and the kernel's device time in that run
@@ -65,6 +80,7 @@ made with NumPy from ``SEED``, and it checks at its end that no module of
 """
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -144,22 +160,38 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def settle_heap() -> None:
+    """Called before a timed run: collect the cyclic garbage there is, then
+    take every live object out of the collector's sight.  This script keeps
+    its data and earlier results alive (millions of list elements), and a
+    full collection that walks them takes 0.1-0.25 s; falling inside a timed
+    run it was counted as the run's wall, and as device time of whichever
+    kernel launch it interrupted.  What the run itself makes is still
+    collected."""
+    gc.collect()
+    gc.freeze()
+
+
 ALIGNER_KERNELS = ("nw_diag", "tb_decode", "myers")
-POA_KERNELS = ("poa_topsort", "poa_nwtb", "poa_add", "poa_consensus")
+POA_KERNELS = ("poa_topsort", "poa_nwtb", "poa_add", "poa_consensus",
+               "poa_msa", "poa_window")
 
 
 def wrappers() -> dict:
     """The kernel wrappers, by kernel name; each counts its launches."""
     from claragenomicsanalysis_tpu_torch.ops import (myers, nw_diag, poa_add,
-                                                     poa_consensus, poa_nwtb,
-                                                     poa_topsort, tb_decode)
+                                                     poa_consensus, poa_msa,
+                                                     poa_nwtb, poa_topsort,
+                                                     poa_window, tb_decode)
     return {"nw_diag": nw_diag.banded_nw_diag,
             "tb_decode": tb_decode.decode_diag,
             "myers": myers.myers_bottom_row,
             "poa_topsort": poa_topsort.topsort,
             "poa_nwtb": poa_nwtb.graph_nw_traceback,
             "poa_add": poa_add.add_alignment,
-            "poa_consensus": poa_consensus.consensus}
+            "poa_consensus": poa_consensus.consensus,
+            "poa_msa": poa_msa.msa,
+            "poa_window": poa_window.poa_window}
 
 
 def zero_launches() -> None:
@@ -348,6 +380,7 @@ def run_aligner(pairs, algorithm: str, device="cuda"):
                              device=device)
     for a, b in pairs:
         aligner.add_alignment(a, b)
+    settle_heap()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     aligner.align_all()
@@ -371,6 +404,7 @@ def phase_main(pairs, sm_mhz: float):
     aligner = create_aligner(max_q, max_t, n, band_radius=64, device="cuda")
     for a, b in pairs:
         aligner.add_alignment(a, b)
+    settle_heap()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -604,6 +638,7 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
                              device="cuda")
     for a, b in pairs:
         aligner.add_alignment(a, b)
+    settle_heap()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -776,20 +811,34 @@ POA_CORR = dict(max_sequence_size=256, max_nodes_per_window=384,
 POA_DEEP = dict(max_sequence_size=512, max_sequences_per_poa=16,
                 max_pred_per_node=16, max_aligned_per_node=8,
                 max_nodes_per_window=1024)
-N_POA = 4096             # correction-shape windows (phase 12)
+#: scripts/bench_poa_v2.py's default configuration, the one it measures with
+#: --msa
+POA_MSA = dict(max_sequence_size=128, max_sequences_per_poa=8,
+               max_pred_per_node=4, max_aligned_per_node=4,
+               max_nodes_per_window=256)
+N_POA = 4096             # correction-shape windows (phases 12, 14, 15)
 N_POA_DEEP = 512         # deep windows (phase 13)
 N_POA_PLAIN = 64         # windows re-run through the plain path on the CPU
+MIN_OK_MSA = 0.97        # share of phase 14's windows that must be SUCCESS
 # int32 operations per unit of work, counted for the POA bounds (PERF.md)
 OPS_NW_CELL = 6          # B5 per live cell, plus 2 per pred slot read
 OPS_ADD_STEP = 20        # B6 per base taken, plus 2 per filled pred and
                          # clique slot of the node it lands on
-OPS_NODE = 4             # B7 / B8 per active node, plus 2 per pred slot
+OPS_NODE = 4             # B7 / B8 / B9 per active node, plus 2 per pred slot
+OPS_MSA_STEP = 4         # B9 per path step of a sequence
+
+
+def tensors_of(x) -> tuple:
+    """The tensors of a kernel's output: a tuple as it is, a graph state
+    without the fields it does not carry."""
+    return x.tensors() if hasattr(x, "tensors") else tuple(x)
 
 
 def maxdiff(a, b) -> int:
-    """Largest absolute difference over two tuples of integer tensors."""
+    """Largest absolute difference over two tuples of integer tensors (or
+    two graph states)."""
     return max((int((x.long() - y.long()).abs().max()) if x.numel() else 0)
-               for x, y in zip(a, b))
+               for x, y in zip(tensors_of(a), tensors_of(b), strict=True))
 
 
 def poa_window_arrays(n: int, blen: int, depth: int, edits: int, L: int,
@@ -817,66 +866,200 @@ def poa_window_arrays(n: int, blen: int, depth: int, edits: int, L: int,
                                 np.full(n, depth, np.int32))
 
 
-@contextlib.contextmanager
-def probe_poa(compare: bool):
-    """Inside the block, models.poa's four kernel calls still launch their
-    kernels and, with ``compare``, also run their plain versions on the same
-    inputs; yields {"err": the largest difference seen, "cells": the real
-    graph-NW cells, alive node_count * (slen + 1) per add}."""
+def live_slots(nc, npred, pred):
+    """Active nodes (W, N) and their filled pred slots (W, N, P)."""
     import torch
-    from claragenomicsanalysis_tpu_torch.models import poa
-    from claragenomicsanalysis_tpu_torch.ops import (poa_add, poa_consensus,
-                                                     poa_nwtb, poa_topsort)
-    stats = {"err": 0, "cells": 0}
-    plains = {"topsort": poa_topsort.topsort_torch,
-              "graph_nw_traceback": poa_nwtb.graph_nw_traceback_torch,
-              "add_alignment": poa_add.add_alignment_torch,
-              "consensus": poa_consensus.consensus_torch}
-    kernels = {name: getattr(poa, name) for name in plains}
+    W, N, P = pred.shape
+    act_n = torch.arange(N, device=nc.device)[None, :] < nc[:, None]
+    slot = (torch.arange(P, device=nc.device)[None, None, :]
+            < npred[:, :, None]) & act_n[:, :, None]
+    return act_n, slot
 
-    def probe(name):
+
+def work_nwtb(args, out=None):
+    """B5: the DP over the (row, column) cells the band leaves (every column
+    0..slen without one), then the end cell and the path."""
+    import torch
+    seq, order, rank, npred, base, nsucc, pred, slen, nc, alive = args[:10]
+    band_width = args[11]
+    W, N, P = pred.shape
+    act_n, slot = live_slots(nc, npred, pred)
+    rows = act_n & alive[:, None]
+    r = torch.arange(N, device=nc.device)[None, :]
+    lo = torch.zeros_like(rows, dtype=torch.int64)
+    hi = slen[:, None].long().expand(W, N)
+    if band_width > 0:
+        c = torch.div((r + 1) * slen[:, None], nc[:, None] + 1,
+                      rounding_mode="floor")
+        lo = (c - band_width // 2).clamp(min=0)
+        hi = torch.minimum(c + band_width // 2, hi)
+    width = torch.where(rows, (hi - lo + 1).clamp(min=0), 0)
+    npred_r = npred.gather(1, order.long())        # row r is node order[r]
+    cells = int(width.sum())
+    TL = N + seq.shape[1]
+    return (int((width * (OPS_NW_CELL + 2 * npred_r)).sum()),
+            4 * (5 * int(rows.sum()) + int((slot & rows[:, :, None]).sum())
+                 + int(torch.where(alive, slen, 0).sum())) + 8 * W * TL
+            + 17 * W,
+            f"{cells} cells in the band" if band_width > 0
+            else f"{cells} live cells")
+
+
+def work_add(args, out=None):
+    """B6: each path step from k0 reads pn and pp; a step that takes a base
+    also reads it and its weight, reads the line of the node it lands on (5
+    words, its filled pred and predw slots and clique members; none for a
+    new node) and writes 5 words (cov, npred, a pred slot and its weight,
+    the previous node's nsucc); with the MSA's paths, the sequence's row
+    (L words) is written too."""
+    import torch
+    state, pn, pp, seq, weights, k0, act = args[:7]
+    W, TL = pn.shape
+    on = act[:, None] & (torch.arange(TL, device=k0.device)[None, :]
+                         >= k0[:, None])
+    take = on & (pp >= 0)
+    old = take & (pn >= 0)
+    node = pn.clamp(min=0).long()
+    preds, clique = (int(torch.where(old, t.gather(1, node), 0).sum())
+                     for t in (state.npred, state.nalig))
+    steps, takes = int(on.sum()), int(take.sum())
+    row = 0 if state.paths is None else 4 * seq.shape[1] * int(act.sum())
+    return (OPS_ADD_STEP * takes + 2 * (preds + clique),
+            8 * steps + 28 * takes
+            + 4 * (5 * int(old.sum()) + 2 * preds + clique) + 21 * W + row,
+            f"{steps} path steps, {takes} bases")
+
+
+def work_topsort(args, out=None):
+    """B7: longest-path levels in one pass in topological order (each node
+    once, each filled pred slot once), then each node placed once."""
+    level, npred, pred, nc = args
+    act_n, slot = live_slots(nc, npred, pred)
+    nodes, edges = int(act_n.sum()), int(slot.sum())
+    W, N = npred.shape
+    return (OPS_NODE * nodes + 2 * edges,
+            4 * (2 * nodes + edges + W) + 12 * W * N + 4 * W,
+            f"{nodes} nodes, {edges} edges")
+
+
+def work_consensus(args, out):
+    """B8: each node's score once in topological order (the max weight over
+    its filled slots, the max score over the tied ones), then the backtrack,
+    one step (and one base and coverage read) per consensus base."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops.poa_state import NEG
+    npred, pred, predw, base, cov, rank, nc, MC = args
+    act_n, slot = live_slots(nc, npred, pred)
+    W, N = npred.shape
+    w = torch.where(slot, predw, NEG)
+    tie = slot & (w == w.max(2).values[:, :, None])
+    nodes, edges = int(act_n.sum()), int(slot.sum())
+    length = int(out[2].sum())
+    return (OPS_NODE * nodes + 2 * edges + 2 * int(tie.sum()) + length,
+            4 * (2 * nodes + 2 * length + 2 * edges + W) + 8 * W * MC + 4 * W,
+            f"{nodes} nodes, {edges} edges")
+
+
+def work_msa(args, out):
+    """B9: one pass in rank order (each active node once, each filled pred
+    slot of a clique's members once), then one step per position of every
+    sequence's path.  Reads the four per-node words of active nodes (order,
+    npred, nalig, base), the filled pred and clique slots and the paths'
+    real entries; writes rows and n_cols whole."""
+    import torch
+    state, order = args
+    act_n, slot = live_slots(state.node_count, state.npred, state.pred)
+    nodes, edges = int(act_n.sum()), int(slot.sum())
+    clique = int(torch.where(act_n, state.nalig, 0).sum())
+    steps = int((state.paths >= 0).sum())
+    W = order.shape[0]
+    return (OPS_NODE * nodes + 2 * edges + OPS_MSA_STEP * steps,
+            4 * (4 * nodes + edges + clique + steps + W)
+            + 4 * out[0].numel() + 4 * W,
+            f"{nodes} nodes, {edges} edges, {steps} path steps")
+
+
+#: kernel name -> (its name in ops.poa_window, its plain version's there,
+#: the function that counts its work)
+POA_STEPS = {
+    "poa_topsort": ("topsort", "topsort_torch", work_topsort),
+    "poa_nwtb": ("graph_nw_traceback", "graph_nw_traceback_torch",
+                 work_nwtb),
+    "poa_add": ("add_alignment", "add_alignment_torch", work_add),
+    "poa_consensus": ("consensus", "consensus_torch", work_consensus),
+    "poa_msa": ("msa_rows", "msa_torch", work_msa),
+}
+
+
+@contextlib.contextmanager
+def probe_poa(compare: bool, count_work: bool = False):
+    """Inside the block, the lockstep loop's five kernel calls still launch
+    their kernels and, with ``compare``, also run their plain versions on
+    the same inputs; with ``count_work`` every call's int32 operations are
+    counted.  Yields {"err": the largest difference seen, "cells": the real
+    graph-NW cells, alive node_count * (slen + 1) per add, "ops": the
+    operations of all calls}."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    stats = {"err": 0, "cells": 0, "ops": 0}
+    kernels = {k: getattr(poa_window, name)
+               for k, (name, _, _) in POA_STEPS.items()}
+
+    def probe(k):
+        _, plain, work = POA_STEPS[k]
+
         def run(*args):
-            out = kernels[name](*args)
+            out = kernels[k](*args)
             if compare:
                 torch.cuda.synchronize()
-                stats["err"] = max(stats["err"],
-                                   maxdiff(out, plains[name](*args)))
-            if name == "graph_nw_traceback":
+                stats["err"] = max(stats["err"], maxdiff(
+                    out, getattr(poa_window, plain)(*args)))
+            if count_work:
+                stats["ops"] += work(args, out)[0]
+            if k == "poa_nwtb":
                 slen, nc, alive = args[7:10]
                 stats["cells"] += int((alive.long() * nc.clamp(
                     max=args[1].shape[1]) * (slen + 1)).sum())
             return out
         return run
 
-    for name in plains:
-        setattr(poa, name, probe(name))
+    for k, (name, _, _) in POA_STEPS.items():
+        setattr(poa_window, name, probe(k))
     try:
         yield stats
     finally:
-        for name, fn in kernels.items():
-            setattr(poa, name, fn)
+        for k, (name, _, _) in POA_STEPS.items():
+            setattr(poa_window, name, kernels[k])
 
 
-def run_poa_arrays(bs, banded: bool, arrays, compare: bool):
-    """models.poa.run_windows on these windows, all in one launch per step,
-    under probe_poa -> (codes, covs, length, status, probe stats)."""
+def run_poa_arrays(bs, banded: bool, arrays, compare: bool,
+                   msa: bool = False, count_work: bool = False):
+    """ops.poa_window.run_windows (the lockstep route) on these windows,
+    all in one launch per step, under probe_poa -> (its seven outputs, the
+    probe's stats)."""
     import torch
     from claragenomicsanalysis_tpu_torch.core.config import PoaScores
-    from claragenomicsanalysis_tpu_torch.models import poa
-    with probe_poa(compare) as stats:
-        out = poa.run_windows(bs, PoaScores(), banded,
-                              *(torch.from_numpy(a).cuda() for a in arrays))
-    return out + (stats,)
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    with probe_poa(compare, count_work) as stats:
+        out = poa_window.run_windows(
+            bs, PoaScores(), banded,
+            *(torch.as_tensor(a).cuda() for a in arrays), msa)
+    return out, stats
 
 
-def phase_poa_kernels() -> dict:
-    """Phase 10: B7, B5, B6 and B8 against their plain versions at every
-    launch of a 5-add run, arrays equal, under tight caps (node, clique and
-    edge overflows all hit), full and banded; the batch holds an empty
-    window, an empty first sequence, N bases, a first sequence over
-    max_nodes_per_window and a 2-node graph against 60 bases."""
+def phase_poa_kernels() -> int:
+    """Phase 10: B7, B5, B6 (writing the MSA's paths), B8 and B9 against
+    their plain versions at every launch of a 5-add run, arrays equal, under
+    tight caps (node, clique and edge overflows all hit), full and banded;
+    the batch holds an empty window, an empty first sequence, N bases, a
+    first sequence over max_nodes_per_window and a 2-node graph against 60
+    bases.  Then B10 on the same windows, with and without the MSA, against
+    the lockstep loop over the plain versions: its six outputs equal."""
     import numpy as np
-    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             PoaScores)
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
     errs = {}
     for banded in (False, True):
         bs = BatchSize(**POA_CAPS, band_width=16 if banded else 256)
@@ -893,141 +1076,72 @@ def phase_poa_kernels() -> dict:
         seqs[5, 0, :2], lens[5, 0] = long_first[:2], 2
         seqs[5, 1, :60], lens[5, 1] = np.resize(long_first, 60), 60
         weights = ((seqs >= 0) * (1 + np.arange(L) % 3)).astype(np.int32)
-        out = run_poa_arrays(bs, banded, (seqs, weights, lens, n_seqs), True)
-        statuses = sorted(set(out[3].tolist()))
-        errs[banded] = out[4]["err"]
+        arrays = (seqs, weights, lens, n_seqs)
+        out, probed = run_poa_arrays(bs, banded, arrays, True, msa=True)
+        statuses = sorted(set(out[5].tolist()))
         kind = "banded, width 16" if banded else "full"
         print(f"phase 10 poa kernels ({kind}"
               f", 64 windows, S={S} P=2 A=2 N={bs.padded_nodes}): every "
-              f"launch of B7/B5/B6/B8 vs its plain version, max diff "
-              f"{errs[banded]}; final statuses {statuses}")
-        check(errs[banded] == 0,
+              f"launch of B7/B5/B6/B8/B9 (the MSA's paths on) vs its plain "
+              f"version, max diff {probed['err']}; final statuses {statuses}")
+        check(probed["err"] == 0,
               "a POA kernel disagrees with its plain version")
         check({0, 23, 24, 28} <= set(statuses),
               "the edge batch must reach SUCCESS, node and edge overflow and "
               "the band status")
+        err_w = 0
+        dev = [torch.from_numpy(a).cuda() for a in arrays]
+        for msa in (False, True):
+            args = (*dev, bs, PoaScores(), banded, msa)
+            got = poa_window.poa_window(*args)
+            torch.cuda.synchronize()
+            err_w = max(err_w, maxdiff(got,
+                                       poa_window.poa_window_torch(*args)))
+            if msa:     # and the lockstep kernels gave the same six
+                err_w = max(err_w, maxdiff(got, out[:6]))
+        print(f"phase 10 poa_window ({kind}): B10's six outputs, with and "
+              f"without the MSA, vs the lockstep loop over the plain "
+              f"versions (and vs the lockstep kernels), max diff {err_w}")
+        check(err_w == 0, "the one-kernel-per-window POA disagrees with its "
+              "plain version")
+        errs[banded] = max(probed["err"], err_w)
     return max(errs.values())
 
 
 def phase_poa_cli():
-    """Phase 11: cli poa on the card against the golden; --banded on the
-    card and the CPU, byte for byte."""
+    """Phase 11: cli poa on the card against the consensus golden, --msa
+    against the MSA golden and the CPU, --banded on the card and the CPU,
+    byte for byte."""
     from claragenomicsanalysis_tpu_torch import cli
     data = os.path.join(ROOT, "data")
-    with open(os.path.join(data, "golden", "sample_consensus.txt")) as f:
-        golden = f.read()
+    golden = {}
+    for name in ("consensus", "msa"):
+        with open(os.path.join(data, "golden", f"sample_{name}.txt")) as f:
+            golden[name] = f.read()
     outs = {}
-    for extra in ([], ["--banded"]):
+    for extra in ([], ["--msa"], ["--banded"]):
         for device in ("cuda", "cpu") if extra else ("cuda",):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["poa", f"{data}/sample-windows.txt", "--device",
                                device] + extra)
             check(rc == 0, f"cli poa {extra} --device {device} failed")
-            outs[(bool(extra), device)] = buf.getvalue()
-    same = outs[(False, "cuda")] == golden
-    banded = outs[(True, "cuda")] == outs[(True, "cpu")]
+            outs[("".join(extra), device)] = buf.getvalue()
+    same = outs[("", "cuda")] == golden["consensus"]
+    msa = outs[("--msa", "cuda")] == golden["msa"]
+    msa_cpu = outs[("--msa", "cuda")] == outs[("--msa", "cpu")]
+    banded = outs[("--banded", "cuda")] == outs[("--banded", "cpu")]
+    word = {True: "identical", False: "DIFFERENT"}
     print(f"phase 11 golden: poa --device cuda vs data/golden/"
-          f"sample_consensus.txt: {'identical' if same else 'DIFFERENT'} "
-          f"({len(golden.splitlines())} lines); poa --banded cuda vs cpu: "
-          f"{'identical' if banded else 'DIFFERENT'}")
+          f"sample_consensus.txt: {word[same]} "
+          f"({len(golden['consensus'].splitlines())} lines); poa --msa "
+          f"--device cuda vs data/golden/sample_msa.txt: {word[msa]} "
+          f"({len(golden['msa'].splitlines())} lines), vs --device cpu: "
+          f"{word[msa_cpu]}; poa --banded cuda vs cpu: {word[banded]}")
     check(same, "poa output differs from data/golden/sample_consensus.txt")
+    check(msa, "poa --msa output differs from data/golden/sample_msa.txt")
+    check(msa_cpu, "poa --msa differs between cuda and cpu")
     check(banded, "poa --banded differs between cuda and cpu")
-
-
-def poa_bounds(kt, outs: dict) -> dict:
-    """Each POA kernel's work at its largest launch of the run (CUDA-event
-    timed, kernel_times keeps its inputs; ``outs`` holds the kernels'
-    outputs there), counted from that launch's data: int32 operations
-    and bytes of the function itself, whatever method the kernel uses.
-    Reads: the per-node arrays of active nodes, the filled pred slots and
-    the real sequence; writes: the outputs.  -> {kernel: (ops, bytes,
-    what)}."""
-    import torch
-    from claragenomicsanalysis_tpu_torch.ops.poa_state import NEG
-    out = {}
-
-    def live(nc, npred, pred):
-        """Active nodes (W, N) and their filled pred slots (W, N, P)."""
-        W, N, P = pred.shape
-        act_n = torch.arange(N, device=nc.device)[None, :] < nc[:, None]
-        slot = (torch.arange(P, device=nc.device)[None, None, :]
-                < npred[:, :, None]) & act_n[:, :, None]
-        return act_n, slot
-
-    # B5: the DP over the (row, column) cells the band leaves (every column
-    # 0..slen without one), then the end cell and the path
-    seq, order, rank, npred, base, nsucc, pred, slen, nc, alive = \
-        kt.largest["poa_nwtb"][:10]
-    band_width = kt.largest["poa_nwtb"][11]
-    W, N, P = pred.shape
-    act_n, slot = live(nc, npred, pred)
-    rows = act_n & alive[:, None]
-    r = torch.arange(N, device=nc.device)[None, :]
-    lo = torch.zeros_like(rows, dtype=torch.int64)
-    hi = slen[:, None].long().expand(W, N)
-    if band_width > 0:
-        c = torch.div((r + 1) * slen[:, None], nc[:, None] + 1,
-                      rounding_mode="floor")
-        lo = (c - band_width // 2).clamp(min=0)
-        hi = torch.minimum(c + band_width // 2, hi)
-    width = torch.where(rows, (hi - lo + 1).clamp(min=0), 0)
-    npred_r = npred.gather(1, order.long())        # row r is node order[r]
-    cells = int(width.sum())
-    TL = N + seq.shape[1]
-    out["poa_nwtb"] = (
-        int((width * (OPS_NW_CELL + 2 * npred_r)).sum()),
-        4 * (5 * int(rows.sum()) + int((slot & rows[:, :, None]).sum())
-             + int(torch.where(alive, slen, 0).sum())) + 8 * W * TL + 17 * W,
-        f"{cells} cells in the band" if band_width > 0
-        else f"{cells} live cells")
-
-    # B6: each path step from k0 reads pn and pp; a step that takes a base
-    # also reads it and its weight, reads the line of the node it lands on
-    # (5 words, its filled pred and predw slots and clique members; none
-    # for a new node) and writes 5 words (cov, npred, a pred slot and its
-    # weight, the previous node's nsucc)
-    state, pn, pp, seq, weights, k0, act = kt.largest["poa_add"][:7]
-    W, TL = pn.shape
-    on = act[:, None] & (torch.arange(TL, device=k0.device)[None, :]
-                         >= k0[:, None])
-    take = on & (pp >= 0)
-    old = take & (pn >= 0)
-    node = pn.clamp(min=0).long()
-    preds, clique = (int(torch.where(old, t.gather(1, node), 0).sum())
-                     for t in (state.npred, state.nalig))
-    steps, takes = int(on.sum()), int(take.sum())
-    out["poa_add"] = (OPS_ADD_STEP * takes + 2 * (preds + clique),
-                      8 * steps + 28 * takes
-                      + 4 * (5 * int(old.sum()) + 2 * preds + clique) + 21 * W,
-                      f"{steps} path steps, {takes} bases")
-
-    # B7: longest-path levels in one pass in topological order (each node
-    # once, each filled pred slot once), then each node placed once
-    level, npred, pred, nc = kt.largest["poa_topsort"]
-    act_n, slot = live(nc, npred, pred)
-    nodes, edges = int(act_n.sum()), int(slot.sum())
-    W, N = npred.shape
-    out["poa_topsort"] = (OPS_NODE * nodes + 2 * edges,
-                          4 * (2 * nodes + edges + W) + 12 * W * N + 4 * W,
-                          f"{nodes} nodes, {edges} edges")
-
-    # B8: each node's score once in topological order (the max weight over
-    # its filled slots, the max score over the tied ones), then the
-    # backtrack, one step (and one base and coverage read) per consensus
-    # base
-    npred, pred, predw, base, cov, rank, nc, MC = kt.largest["poa_consensus"]
-    act_n, slot = live(nc, npred, pred)
-    W, N = npred.shape
-    w = torch.where(slot, predw, NEG)
-    tie = slot & (w == w.max(2).values[:, :, None])
-    nodes, edges = int(act_n.sum()), int(slot.sum())
-    length = int(outs["poa_consensus"][2].sum())
-    out["poa_consensus"] = (
-        OPS_NODE * nodes + 2 * edges + 2 * int(tie.sum()) + length,
-        4 * (2 * nodes + 2 * length + 2 * edges + W) + 8 * W * MC + 4 * W,
-        f"{nodes} nodes, {edges} edges")
-    return out
 
 
 def edit_distances(pairs) -> "np.ndarray":
@@ -1038,27 +1152,23 @@ def edit_distances(pairs) -> "np.ndarray":
     return np.array([r.edit_distance for r in res])
 
 
-def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
-                   banded: bool, sm_mhz: float) -> dict:
-    """Phases 12 and 13: a POA main path through create_batch(...,
-    device="cuda"), add_poa_group, generate_poa and get_consensus, with its
-    checks, launch counts, kernel times and bounds."""
-    import numpy as np
+def run_poa_batch(bs, windows, banded: bool, msa: bool, kernel: str,
+                  device: str = "cuda"):
+    """The windows through create_batch(...) on ``device``: generate_poa,
+    get_consensus and, with ``msa``, get_msa, timed by the host clock ending
+    in a sync, launches counted from zero and every kernel timed by its
+    events.  -> dict(cons, covs, stats, msas, wall, launches, kt, peak)."""
     import torch
-    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
-    from claragenomicsanalysis_tpu_torch.core.status import StatusType
+    from claragenomicsanalysis_tpu_torch.core.status import OutputType
     from claragenomicsanalysis_tpu_torch.models import poa
     from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
-    bs = BatchSize(**cfg)
-    S, N, L = bs.max_sequences_per_poa, bs.padded_nodes, bs.padded_seq
-    t0 = time.perf_counter()
-    backbones, windows, arrays = poa_window_arrays(n, blen, S, edits, L,
-                                                   SEED + 20 + S)
-    t_data = time.perf_counter() - t0
-    batch = poa.create_batch(bs, max_poas=n, banded_alignment=banded,
-                             device="cuda")
+    mask = OutputType.CONSENSUS | (OutputType.MSA if msa else 0)
+    batch = poa.create_batch(bs, output_mask=mask, max_poas=len(windows),
+                             banded_alignment=banded, device=device,
+                             kernel=kernel)
     for w in windows:
         batch.add_poa_group(w)
+    settle_heap()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -1066,35 +1176,144 @@ def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
     with kernel_times() as kt:
         batch.generate_poa()
         cons, covs, stats = batch.get_consensus()
+        msas = batch.get_msa()[0] if msa else None
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(POA_KERNELS)
-    peak = torch.cuda.max_memory_allocated()
-    chunks = poa.launch_chunks(n, bs)
+    check(kt.count() == {k: v for k, v in launches.items() if v},
+          f"timed launches {kt.count()} != counted {launches}")
+    return dict(cons=cons, covs=covs, stats=stats, msas=msas, wall=wall,
+                launches=launches, kt=kt,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def check_msa_rows(tag: str, windows, msas, stats) -> int:
+    """Every SUCCESS window's rows have one length, and each row with its
+    gaps removed is its sequence, or holds no base its sequence lacks: where
+    a clique got its column before a pred of one member had one, that pred
+    takes the same column or a later one, so two positions of a sequence can
+    share a column (the later one shows) or stand out of order (the JAX
+    package's rule, kept).  -> rows written."""
+    import collections
+    from claragenomicsanalysis_tpu_torch.core.status import StatusType
+    n_rows = n_whole = n_cols = n_short = 0
+    for w, m, st in zip(windows, msas, stats):
+        if st != StatusType.SUCCESS:
+            check(m == [], f"{tag}: a failed window shows rows")
+            continue
+        check(len(m) == len(w) and len({len(r) for r in m}) == 1,
+              f"{tag}: a window's rows differ in length")
+        n_cols += len(m[0])
+        for row, seq in zip(m, w):
+            bases = row.replace("-", "")
+            n_rows += 1
+            n_whole += bases == seq
+            n_short += len(bases) < len(seq)
+            check(not collections.Counter(bases) - collections.Counter(seq),
+                  f"{tag}: a row holds a base its sequence lacks")
+    print(f"{tag} MSA rows: {n_rows} rows of equal length within their "
+          f"window ({n_cols} columns in all); with the gaps removed "
+          f"{n_whole} are their input sequence; of the other "
+          f"{n_rows - n_whole}, {n_short} lost bases to a shared column and "
+          f"{n_rows - n_whole - n_short} hold theirs out of order")
+    check(n_whole > n_rows // 2, f"{tag}: most rows lose bases")
+    return n_rows
+
+
+def check_graphs(tag: str, bs, banded: bool, windows, arrays, sub) -> None:
+    """get_graphs() on the windows ``sub`` against the final graph state of
+    the lockstep kernels on the same windows: the node count, every label
+    and every edge weight."""
+    from claragenomicsanalysis_tpu_torch.models import poa
+    batch = poa.create_batch(bs, max_poas=len(sub), banded_alignment=banded,
+                             device="cuda")
+    for i in sub:
+        batch.add_poa_group(windows[i])
+    graphs = batch.get_graphs()
+    out, _ = run_poa_arrays(bs, banded, [a[sub] for a in arrays], False)
+    base, cov, npred, pred, predw, nc, status = (
+        t.cpu().numpy() for t in (out[6].base, out[6].cov, out[6].npred,
+                                  out[6].pred, out[6].predw,
+                                  out[6].node_count, out[6].status))
+    n_nodes = n_edges = n_none = 0
+    for k, g in enumerate(graphs):
+        if status[k] != 0:
+            check(g is None, f"{tag}: a failed window exports a graph")
+            n_none += 1
+            continue
+        dot = g.serialize_to_dot()
+        check(g.nodes() == list(range(int(nc[k]))),
+              f"{tag}: graph {k} has the wrong nodes")
+        for u in range(int(nc[k])):
+            label = f'{"ACGT"[base[k, u]]}:{int(cov[k, u])}'
+            check(f'  {u} [label="{label}"];' in dot,
+                  f"{tag}: graph {k} node {u} label")
+            for p in range(int(npred[k, u])):
+                check(g.edge_weight(int(pred[k, u, p]), u)
+                      == int(predw[k, u, p]), f"{tag}: graph {k} edge weight")
+                n_edges += 1
+        n_nodes += int(nc[k])
+    print(f"{tag} get_graphs: {len(sub)} windows, {n_nodes} nodes and "
+          f"{n_edges} edges equal the final state's node counts, labels "
+          f"and predw; {n_none} failed windows export None")
+
+
+def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
+                   banded: bool, sm_mhz: float, msa: bool = False):
+    """Phases 12, 13 and 14: a POA main path through create_batch(...,
+    device="cuda"), add_poa_group, generate_poa, get_consensus and, with
+    ``msa``, get_msa, with its checks, launch counts, kernel times and
+    bounds.  -> (per-kernel figures, the run and its data, for phase 15)."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
+    from claragenomicsanalysis_tpu_torch.core.status import StatusType
+    from claragenomicsanalysis_tpu_torch.models import poa
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    bs = BatchSize(**cfg)
+    S, N, L = bs.max_sequences_per_poa, bs.padded_nodes, bs.padded_seq
+    t0 = time.perf_counter()
+    backbones, windows, arrays = poa_window_arrays(n, blen, S, edits, L,
+                                                   SEED + 20 + S + msa)
+    t_data = time.perf_counter() - t0
+    run = run_poa_batch(bs, windows, banded, msa, "lockstep")
+    cons, covs, stats, msas = (run[k] for k in ("cons", "covs", "stats",
+                                                "msas"))
+    wall, launches, kt = run["wall"], run["launches"], run["kt"]
+    chunks = poa.launch_chunks(n, bs, msa)
     want = {"poa_topsort": len(chunks) * S, "poa_nwtb": len(chunks) * (S - 1),
-            "poa_add": len(chunks) * (S - 1), "poa_consensus": len(chunks)}
+            "poa_add": len(chunks) * (S - 1), "poa_consensus": len(chunks),
+            "poa_msa": len(chunks) * msa, "poa_window": 0}
     check(launches == want, f"{tag}: launches {launches} != {want} "
           f"({len(chunks)} launches of windows)")
-    check(kt.count() == launches, f"{tag}: timed launches {kt.count()}")
     dev_ms = kt.ms()
     busy = sum(dev_ms.values())
-    n_ok = sum(s == StatusType.SUCCESS for s in stats)
+    ok = np.array([s == StatusType.SUCCESS for s in stats])
+    n_ok = int(ok.sum())
 
     # the same windows through the kernels in one launch each: their real
     # graph-NW cells, and the outputs must equal the batch's
-    codes, _, length, status, probed = run_poa_arrays(bs, banded, arrays,
-                                                      False)
+    out, probed = run_poa_arrays(bs, banded, arrays, False, msa)
+    codes, _, length, rows, n_cols, status = (t.cpu().numpy()
+                                              for t in out[:6])
     cells = probed["cells"]
     same = all(st == StatusType(int(status[i])) for i, st in enumerate(stats))
     same &= all(c == "".join("ACGT"[x] if x >= 0 else "N"
                              for x in codes[i, :int(length[i])].tolist())
-                for i, c in enumerate(cons))
+                for i, c in enumerate(cons) if ok[i])
+    if msa:
+        gap = np.frombuffer(b"ACGT-", dtype=np.uint8)
+        chars = gap[np.where(rows >= 0, np.clip(rows, 0, 3), 4)]
+        same &= all(m == [chars[i, si, :n_cols[i]].tobytes().decode()
+                          for si in range(len(windows[i]))]
+                    for i, m in enumerate(msas) if ok[i])
     padded = n * (S - 1) * N * (L + 1)
     bases = sum(len(c) for c in cons)
-    print(f"{tag} main path: {n} windows of {S} x {blen}-base pileups "
-          f"({edits} edits each){', banded' if banded else ''}, BatchSize("
-          f"{', '.join(f'{k}={v}' for k, v in cfg.items())}), N={N} L={L}; "
-          f"data made in {t_data:.1f} s")
+    what = "get_consensus + get_msa" if msa else "get_consensus"
+    print(f"{tag} main path ({what}): {n} windows of {S} x {blen}-base "
+          f"pileups ({edits} edits each){', banded' if banded else ''}, "
+          f"BatchSize({', '.join(f'{k}={v}' for k, v in cfg.items())}), "
+          f"N={N} L={L}; data made in {t_data:.1f} s")
     print(f"{tag} end to end: {wall:.3f} s = {n / wall:.1f} windows/s = "
           f"{bases / wall / 1e6:.4f} M consensus bases/s; graph-NW "
           f"{cells / wall / 1e9:.4f} G real cells/s ({cells} = alive "
@@ -1102,33 +1321,45 @@ def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
           f"padded cells/s ({padded} = N x (L + 1) per add); kernel share "
           f"{busy / (wall * 1e3):.4f} ({busy:.2f} ms of {wall * 1e3:.1f} ms)"
           f"; {len(chunks)} launches of windows ({[len(c) for c in chunks]}"
-          f"); max_memory_allocated={peak} B")
-    print(f"{tag} checks: {n_ok}/{n} SUCCESS; the kernels driven in one "
-          f"launch of all windows give the same consensus and statuses: "
-          f"{same}")
-    check(n_ok == n, f"{tag}: only {n_ok} of {n} windows SUCCESS")
+          f"); max_memory_allocated={run['peak']} B")
+    failed = sorted({s.name for s in stats if s != StatusType.SUCCESS})
+    print(f"{tag} checks: {n_ok}/{n} SUCCESS{f' (the others {failed})' * bool(failed)}"
+          f"; the kernels driven in one launch of all windows give the same "
+          f"consensus{', MSA' * msa} and statuses: {same}")
+    if msa:
+        # 4 pred slots a node: a few windows overflow them and say so
+        check(n_ok >= MIN_OK_MSA * n and set(failed) <= {
+            "EDGE_COUNT_EXCEEDED_MAXIMUM_GRAPH_SIZE",
+            "NODE_COUNT_EXCEEDED_MAXIMUM_GRAPH_SIZE"},
+            f"{tag}: only {n_ok} of {n} windows SUCCESS ({failed})")
+    else:
+        check(n_ok == n, f"{tag}: only {n_ok} of {n} windows SUCCESS")
     check(same, f"{tag}: one launch of all windows differs from the batch")
+    if msa:
+        n_rows = check_msa_rows(tag, windows, msas, stats)
+        print(f"{tag} MSA rate: {n_rows / wall:.1f} MSA rows/s")
 
     # the plain path (CPU) on a subset
     sub = list(range(0, n, n // N_POA_PLAIN))[:N_POA_PLAIN]
-    cpu = poa.create_batch(bs, max_poas=len(sub), banded_alignment=banded,
-                           device="cpu")
-    for i in sub:
-        cpu.add_poa_group(windows[i])
     t0 = time.perf_counter()
-    c_cons, c_covs, c_stats = cpu.get_consensus()
+    cpu = run_poa_batch(bs, [windows[i] for i in sub], banded, msa,
+                        "lockstep", "cpu")
     t_cpu = time.perf_counter() - t0
-    plain_same = (c_cons == [cons[i] for i in sub]
-                  and c_covs == [covs[i] for i in sub]
-                  and c_stats == [stats[i] for i in sub])
+    plain_same = (cpu["cons"] == [cons[i] for i in sub]
+                  and cpu["covs"] == [covs[i] for i in sub]
+                  and cpu["stats"] == [stats[i] for i in sub]
+                  and (not msa or cpu["msas"] == [msas[i] for i in sub]))
     print(f"{tag} plain path: {len(sub)} windows through Batch(device="
-          f'"cpu") in {t_cpu:.1f} s: consensus, coverage and statuses '
-          f"equal the card's: {plain_same}")
+          f'"cpu") in {t_cpu:.1f} s: consensus, coverage{", MSA" * msa} and '
+          f"statuses equal the card's: {plain_same}")
     check(plain_same, f"{tag}: the plain path differs from the card's")
+    if msa:
+        check_graphs(tag, bs, banded, windows, arrays, sub)
 
     # accuracy: edit distance to the backbone, consensus vs one support
-    d_cons = edit_distances(list(zip(cons, backbones)))
-    d_sup = edit_distances([(w[0], b) for w, b in zip(windows, backbones)])
+    good = np.flatnonzero(ok)
+    d_cons = edit_distances([(cons[i], backbones[i]) for i in good])
+    d_sup = edit_distances([(windows[i][0], backbones[i]) for i in good])
     print(f"{tag} accuracy: median edit distance to the backbone "
           f"{float(np.median(d_cons)):.1f} for the consensus vs "
           f"{float(np.median(d_sup)):.1f} for a support (mean "
@@ -1138,26 +1369,16 @@ def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
           f"support")
 
     # each kernel at its largest launch against its plain version
-    from claragenomicsanalysis_tpu_torch.ops import (poa_add, poa_consensus,
-                                                     poa_nwtb, poa_topsort)
-    pairs = {"poa_topsort": (poa_topsort.topsort, poa_topsort.topsort_torch),
-             "poa_nwtb": (poa_nwtb.graph_nw_traceback,
-                          poa_nwtb.graph_nw_traceback_torch),
-             "poa_add": (poa_add.add_alignment, poa_add.add_alignment_torch),
-             "poa_consensus": (poa_consensus.consensus,
-                               poa_consensus.consensus_torch)}
-    timed, outs = {}, {}
-    for k, (kernel, plain) in pairs.items():
-        args = kt.largest[k]
-        ms, outs[k] = cuda_ms(lambda: kernel(*args), 5)
-        ms_p, out_p = cuda_ms(lambda: plain(*args), 1)
-        timed[k] = ms, ms_p, maxdiff(outs[k], out_p)
-    work = poa_bounds(kt, outs)
     per = {}
-    for k in pairs:
+    for k, (name, plain, work) in POA_STEPS.items():
+        if not launches[k]:
+            continue
         args = kt.largest[k]
-        ms, ms_p, err = timed[k]
-        ops, nbytes, what = work[k]
+        kernel, plain = getattr(poa_window, name), getattr(poa_window, plain)
+        ms, out_k = cuda_ms(lambda: kernel(*args), 5)
+        ms_p, out_p = cuda_ms(lambda: plain(*args), 1)
+        err = maxdiff(out_k, out_p)
+        ops, nbytes, what = work(args, out_k)
         b = bound(ops, nbytes, sm_mhz)
         each = [s.elapsed_time(e) for s, e in kt.events[k]]
         W = args[0].shape[0] if torch.is_tensor(args[0]) else \
@@ -1172,7 +1393,105 @@ def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
               f"largest launch")
         per[k] = {"shape": shape, "ms": ms, "plain_ms": ms_p, "bound": b,
                   "err": err, "launches": launches[k], "run_ms": dev_ms[k]}
-    return per
+    kt.largest.clear()      # the kept inputs of the largest launches
+    return per, dict(run, bs=bs, windows=windows, banded=banded, msa=msa,
+                     cfg=cfg)
+
+
+def phase_poa_window(tag: str, ref: dict, sm_mhz: float) -> dict:
+    """Phase 15: the windows of an earlier phase (``ref``: its run through
+    the lockstep route and its data) through create_batch(...,
+    kernel="window"): the same outputs; the two routes' walls in turns on
+    the same data; B10 at its largest launch against its plain version,
+    with its time and bound."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.models import poa
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    bs, windows, banded, msa = (ref[k] for k in ("bs", "windows", "banded",
+                                                 "msa"))
+    n, S = len(windows), bs.max_sequences_per_poa
+    runs = []
+    for i, kernel in enumerate(("lockstep", "window", "window", "lockstep")):
+        r = run_poa_batch(bs, windows, banded, msa, kernel)
+        if i != 1:      # the kept inputs of the largest launches: let go
+            r["kt"].largest.clear()
+        runs.append((kernel, r))
+    run = runs[1][1]
+    chunks = poa.launch_chunks(n, bs, msa)
+    want = dict.fromkeys(POA_KERNELS, 0) | {"poa_window": len(chunks)}
+    check(run["launches"] == want,
+          f"{tag}: launches {run['launches']} != {want}")
+    same = all(r[k] == ref[k] for _, r in runs
+               for k in ("cons", "covs", "stats", "msas"))
+    dev_ms = run["kt"].ms()["poa_window"]
+    each = [s.elapsed_time(e) for s, e in run["kt"].events["poa_window"]]
+    walls = ", ".join(f"{k} {r['wall'] * 1e3:.1f} ms = {n / r['wall']:.1f} "
+                      f"windows/s" for k, r in runs)
+    what = "get_consensus + get_msa" if msa else "get_consensus"
+    print(f"{tag} kernel=\"window\" ({what}): {n} windows, BatchSize("
+          f"{', '.join(f'{k}={v}' for k, v in ref['cfg'].items())}), "
+          f"{len(chunks)} launches of windows ({[len(c) for c in chunks]}), "
+          f"{poa_window.window_smem_bytes(bs)} B of shared memory a block; "
+          f"consensus, coverage, statuses{', MSA rows' * msa} equal the "
+          f"lockstep route's: {same}")
+    print(f"{tag} walls in turns on the same windows: {walls}; B10 "
+          f"{dev_ms:.2f} ms in its run ({[round(x, 3) for x in each]} ms a "
+          f"launch), kernel share {dev_ms / (run['wall'] * 1e3):.4f}; "
+          f"max_memory_allocated={run['peak']} B")
+    check(same, f"{tag}: the window route differs from the lockstep route")
+
+    # B10 at its largest launch against its plain version, and its bound:
+    # the operations of every step of the lockstep loop on these windows,
+    # the bytes of the inputs' real bases and of the outputs only
+    args = run["kt"].largest["poa_window"]
+    ms, out_k = cuda_ms(lambda: poa_window.poa_window(*args), 5)
+    ms_p, out_p = cuda_ms(lambda: poa_window.poa_window_torch(*args), 1)
+    err = maxdiff(out_k, out_p)
+    seqs, weights, lens, n_seqs = args[:4]
+    W = seqs.shape[0]
+    _, probed = run_poa_arrays(bs, banded, args[:4], False, msa, True)
+    real = int(torch.where(torch.arange(S, device=lens.device)[None, :]
+                           < n_seqs[:, None], lens, 0).sum())
+    nbytes = 8 * real + 4 * W * S + 4 * W + sum(4 * t.numel() for t in out_k)
+    b = bound(probed["ops"], nbytes, sm_mhz)
+    shape = (f"W={W} N={bs.padded_nodes} L={bs.padded_seq} "
+             f"P={bs.max_pred_per_node} S={S}{' msa' * msa}")
+    print(f"{tag} poa_window: replayed at the largest launch ({shape}): "
+          f"kernel {ms:.3f} ms vs plain {ms_p:.1f} ms, max diff {err}; bound "
+          f"{probed['ops']} int32 ops (every step of the lockstep loop), "
+          f"{nbytes} B (inputs and outputs) -> {b[0]:.4f} ms ({b[1]})")
+    check(err == 0, f"{tag}: poa_window disagrees with its plain version at "
+          f"its largest launch")
+    return {"poa_window": {"shape": shape, "ms": ms, "plain_ms": ms_p,
+                           "bound": b, "err": err,
+                           "launches": run["launches"]["poa_window"],
+                           "run_ms": dev_ms}}
+
+
+def phase_poa_window_refuses(tag: str, cfg: dict) -> None:
+    """The window route at a shape whose graph does not fit a block's shared
+    memory: the wrapper must refuse it and name the sizes."""
+    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
+    from claragenomicsanalysis_tpu_torch.models import poa
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    bs = BatchSize(**cfg)
+    need = poa_window.window_smem_bytes(bs)
+    batch = poa.create_batch(bs, max_poas=1, device="cuda", kernel="window")
+    batch.add_poa_group(["ACGT" * 8, "ACGT" * 8])
+    zero_launches()
+    try:
+        batch.get_consensus()
+    except ValueError as e:
+        said = str(e)
+    else:
+        raise SmokeFailure(f"{tag}: a plan of {need} B of shared memory "
+                           f"was not refused")
+    check(str(need) in said and "shared memory" in said
+          and read_launches(POA_KERNELS)["poa_window"] == 0,
+          f"{tag}: the refusal does not name the sizes: {said}")
+    print(f"{tag} kernel=\"window\" at BatchSize("
+          f"{', '.join(f'{k}={v}' for k, v in cfg.items())}): refused, "
+          f"nothing launched: {said}")
 
 
 def main() -> int:
@@ -1203,10 +1522,18 @@ def main() -> int:
     phase_cli_algorithms()
     errs |= dict.fromkeys(POA_KERNELS, phase_poa_kernels())
     phase_poa_cli()
-    paths["poa"] = phase_poa_main("phase 12", POA_CORR, N_POA, 128,
-                                  max(5, 128 // 20), False, sm_mhz)
-    paths["poa_deep"] = phase_poa_main("phase 13", POA_DEEP, N_POA_DEEP, 256,
-                                       12, True, sm_mhz)
+    paths["poa"], corr = phase_poa_main("phase 12", POA_CORR, N_POA, 128,
+                                        max(5, 128 // 20), False, sm_mhz)
+    paths["poa_deep"], _ = phase_poa_main("phase 13", POA_DEEP, N_POA_DEEP,
+                                          256, 12, True, sm_mhz)
+    paths["poa_msa"], msa = phase_poa_main("phase 14", POA_MSA, N_POA, 100,
+                                           max(5, 100 // 20), False, sm_mhz,
+                                           msa=True)
+    paths["poa_window_msa"] = phase_poa_window("phase 15 (MSA shape)", msa,
+                                               sm_mhz)
+    paths["poa_window"] = phase_poa_window("phase 15 (correction shape)",
+                                           corr, sm_mhz)
+    phase_poa_window_refuses("phase 15 (deep shape)", POA_DEEP)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "claragenomicsanalysis_tpu")
@@ -1226,6 +1553,9 @@ def main() -> int:
         "poa_add": (f"{csrc}/poa_add.cu", f"{v2}:640"),
         "poa_topsort": (f"{csrc}/poa_topsort.cu", f"{v2}:1006"),
         "poa_consensus": (f"{csrc}/poa_consensus.cu", f"{v2}:1196"),
+        "poa_msa": (f"{csrc}/poa_msa.cu", f"{v2}:1482"),
+        "poa_window": (f"{csrc}/poa_window.cu",
+                       "claragenomicsanalysis_tpu/ops/poa_pallas.py:88"),
     }
     kernels = []
     for k, (src, rep) in meta.items():

@@ -2,17 +2,16 @@
 subcommands.
 
 Run as ``python -m claragenomicsanalysis_tpu_torch.cli align q.fa t.fa`` or
-``... cli poa windows.txt``.  Output and flags are those of the JAX
+``... cli poa windows.txt [--msa]``.  Output and flags are those of the JAX
 package's ``cli align`` and ``cli poa``, plus ``--device {cuda,cpu}``; the
-JAX package's ``-d/--devices`` mesh flag has no counterpart yet, and
-``poa --msa`` fails until the port computes the MSA.
+JAX package's ``-d/--devices`` mesh flag has no counterpart yet.
 """
 
 import argparse
 import sys
 
 from .core.config import BatchSize
-from .core.status import StatusType
+from .core.status import OutputType, StatusType
 from .io.fasta import create_fasta_parser
 
 
@@ -43,18 +42,16 @@ def cmd_align(args) -> int:
 def cmd_poa(args) -> int:
     from .io.windows import read_windows
     from .models.poa import create_batch
-    if args.msa:
-        print("error: poa --msa is not available in this package yet "
-              "(ROADMAP A.4)", file=sys.stderr)
-        return 2
     windows = read_windows(args.windows, max_windows=args.max_windows or None)
     max_len = max((len(s) for w in windows for s in w), default=1)
     max_seqs = max((len(w) for w in windows), default=1)
     bs = BatchSize(max_sequence_size=max(64, max_len),
                    max_sequences_per_poa=max(2, max_seqs),
                    band_width=args.band_width)
-    batch = create_batch(batch_size=bs, max_poas=len(windows),
-                         banded_alignment=args.banded, device=args.device)
+    mask = OutputType.CONSENSUS | (OutputType.MSA if args.msa else 0)
+    batch = create_batch(batch_size=bs, output_mask=mask,
+                         max_poas=len(windows), banded_alignment=args.banded,
+                         device=args.device)
     for w in windows:
         batch.add_poa_group(w)
     cons, _, stats = batch.get_consensus()
@@ -63,6 +60,12 @@ def cmd_poa(args) -> int:
             print(c)
         else:
             print(f"*\t{st.name}")
+    if args.msa:
+        msas, _ = batch.get_msa()
+        for i, m in enumerate(msas):
+            print(f"> window {i}")
+            for row in m:
+                print(row)
     return 0
 
 
@@ -82,7 +85,8 @@ def main(argv=None) -> int:
     p = sub.add_parser("poa", help="POA consensus over a window file")
     p.add_argument("windows")
     p.add_argument("--msa", action="store_true",
-                   help="not available yet: exits with an error")
+                   help="also print each window's multiple sequence "
+                        "alignment, one gapped row per sequence")
     p.add_argument("--max-windows", type=int, default=0)
     p.add_argument("--banded", action="store_true",
                    help="static-banded graph NW (cudapoa banded_alignment)")

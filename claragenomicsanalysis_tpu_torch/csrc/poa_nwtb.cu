@@ -38,22 +38,9 @@
 // matching slot, lane 0 writes the path.  A window that is not alive, or
 // whose best sink lies outside the band, gets the inert path.
 
-#include <climits>
-
-#include "common.cuh"
+#include "poa_nwtb.cuh"
 
 namespace {
-
-constexpr int kMaxChunk = 8;  // columns per thread
-constexpr unsigned kFull = 0xffffffffu;
-
-// plane row ri (0 = virtual source) at column j; rows past nc are NEG
-__device__ __forceinline__ int cell(const int32_t* plane, int ri, int j,
-                                    int nc, int L1, int g) {
-  if (ri == 0) return j * g;
-  if (ri > nc) return cga::kNeg;
-  return plane[(size_t)ri * L1 + j];
-}
 
 __global__ void poa_nwtb_kernel(
     const int32_t* __restrict__ seq, const int32_t* __restrict__ order,
@@ -66,210 +53,27 @@ __global__ void poa_nwtb_kernel(
     int32_t* __restrict__ band_oks, int N, int P, int L, int match,
     int mismatch, int g, int band_width) {
   extern __shared__ __align__(16) int32_t smem[];
-  int32_t* sq = smem;            // the sequence, L
-  int32_t* rorder = sq + L;      // node of rank r, N
-  int32_t* rbase = rorder + N;   // its base
-  int32_t* rnp = rbase + N;      // its in-degree
-  int32_t* rprow = rnp + N;      // plane row of each pred slot, N * P
-  __shared__ int warp_tot[32];
-  __shared__ int s_vmax, s_rend;
-
   const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int wid = tid >> 5;
   const int TL = N + L;
-  const int L1 = L + 1;
   int32_t* pnw = pn + (size_t)w * TL;
   int32_t* ppw = pp + (size_t)w * TL;
-  for (int i = tid; i < TL; i += nt) {
+  for (int i = threadIdx.x; i < TL; i += blockDim.x) {
     pnw[i] = -2;
     ppw[i] = -2;
   }
   if (!alive[w]) {
-    if (tid == 0) {
+    if (threadIdx.x == 0) {
       k0s[w] = TL;
       band_oks[w] = 0;
     }
     return;
   }
-  const int nc = node_counts[w];
-  const int nce = min(max(nc, 0), N);
-  const int slen = slens[w];
   const size_t wn = (size_t)w * N;
-  for (int i = tid; i < L; i += nt) sq[i] = seq[(size_t)w * L + i];
-  for (int r = tid; r < N; r += nt) {
-    const int u = min(max(order[wn + r], 0), N - 1);
-    const int k = npred[wn + u];
-    rorder[r] = order[wn + r];
-    rbase[r] = base[wn + u];
-    rnp[r] = k;
-    for (int p = 0; p < P; ++p) {
-      int row = 0;
-      if (p < k) {
-        const int q = pred[(wn + u) * P + p];
-        row = (q >= 0 && q < N) ? rank[wn + q] + 1 : 0;
-      }
-      rprow[r * P + p] = min(max(row, 0), N);
-    }
-  }
-  __syncthreads();
-
-  int32_t* plane = planes + (size_t)w * (N + 1) * L1;
-  const int ncol = slen + 1;
-  const int cpt = (ncol + nt - 1) / nt;
-  const int c0 = tid * cpt;
-  const int c1 = min(c0 + cpt, ncol);
-  const int half = band_width / 2;
-  for (int r = 0; r < nce; ++r) {
-    const int k = rnp[r];
-    const int b = rbase[r];
-    const int32_t* prow = rprow + r * P;
-    const int center =
-        band_width > 0 ? (int)(((long long)(r + 1) * slen) / (nc + 1)) : 0;
-    // the max over the pred rows at column j (the virtual row for a source)
-    auto pmax = [&](int j) {
-      if (k == 0) return j * g;
-      int m = k < P ? cga::kNeg : INT_MIN;
-      for (int p = 0; p < k && p < P; ++p)
-        m = max(m, cell(plane, prow[p], j, nce, L1, g));
-      return m;
-    };
-    int xs[kMaxChunk];
-    int run = INT_MIN;
-    int pm_prev = c0 >= 1 && c0 < c1 ? pmax(c0 - 1) : 0;
-#pragma unroll
-    for (int i = 0; i < kMaxChunk; ++i) {
-      const int j = c0 + i;
-      if (j < c1) {
-        const int pm = pmax(j);
-        int v;
-        if (j == 0) {
-          v = pm + g;
-        } else {
-          const int sc = sq[j - 1];
-          const int sub = (sc == b && sc >= 0) ? match : mismatch;
-          v = max(pm_prev + sub, pm + g);
-        }
-        if (band_width > 0 && abs(j - center) > half) v = cga::kNeg;
-        run = max(run, v - j * g);
-        pm_prev = pm;
-      }
-      xs[i] = run;
-    }
-    // block-wide exclusive prefix max of the threads' runs
-    int tot = run;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, tot, o);
-      if (lane >= o) tot = max(tot, y);
-    }
-    if (lane == 31) warp_tot[wid] = tot;
-    int pre = __shfl_up_sync(kFull, tot, 1);
-    if (lane == 0) pre = INT_MIN;
-    __syncthreads();
-    for (int q = 0; q < wid; ++q) pre = max(pre, warp_tot[q]);
-    int32_t* out = plane + (size_t)(r + 1) * L1;
-#pragma unroll
-    for (int i = 0; i < kMaxChunk; ++i) {
-      const int j = c0 + i;
-      if (j < c1) {
-        int v = max(pre, xs[i]) + j * g;
-        if (band_width > 0 && abs(j - center) > half) v = cga::kNeg;
-        out[j] = v;
-      }
-    }
-    __syncthreads();  // the row is complete; warp_tot may be reused
-  }
-
-  // end cell: the best sink at column slen, ties to the smallest rank
-  if (tid == 0) {
-    s_vmax = INT_MIN;
-    s_rend = INT_MAX;
-  }
-  __syncthreads();
-  for (int r = tid; r < N; r += nt) {
-    const bool sink =
-        r < nc && nsucc[wn + min(max(rorder[r], 0), N - 1)] == 0;
-    atomicMax(&s_vmax, sink ? cell(plane, r + 1, slen, nce, L1, g)
-                            : cga::kNeg);
-  }
-  __syncthreads();
-  const int vmax = s_vmax;
-  for (int r = tid; r < N; r += nt) {
-    const bool sink =
-        r < nc && nsucc[wn + min(max(rorder[r], 0), N - 1)] == 0;
-    if (sink && cell(plane, r + 1, slen, nce, L1, g) == vmax)
-      atomicMin(&s_rend, r);
-  }
-  __syncthreads();
-  const bool ok = vmax > cga::kNeg / 2;
-  if (tid == 0) band_oks[w] = ok;
-  if (!ok || wid != 0) {
-    if (tid == 0 && !ok) k0s[w] = TL;
-    return;
-  }
-
-  // traceback, warp 0: lane p tests pred slot p
-  int r = nc > 0 ? (s_rend == INT_MAX ? 0 : s_rend) : -1;
-  int j = slen;
-  int k = TL;
-  while ((r >= 0 || j > 0) && k > 0) {
-    const bool real = r >= 0 && r < N;
-    const int jc = min(max(j, 0), L);
-    const int here = cell(plane, min(r + 1, N), jc, nce, L1, g);
-    const int sc = (j >= 1 && j <= L) ? sq[j - 1] : -1;
-    const int u = real ? rorder[r] : -1;
-    const int bu = real ? rbase[r] : -2;
-    const int sub = (sc == bu && sc >= 0) ? match : mismatch;
-    const int nslots = real ? rnp[r] : 0;
-    bool any_d = false, any_v = false;
-    int row_d = 0, row_v = 0;
-    for (int p0 = 0; p0 < P; p0 += 32) {
-      const int p = p0 + lane;
-      bool slot = p < P && p < nslots;
-      int prow = slot ? rprow[r * P + p] : -1;
-      if (p == 0 && nslots == 0) {  // a source: the virtual row
-        prow = 0;
-        slot = true;
-      }
-      bool d_ok = false, v_ok = false;
-      if (slot) {
-        const int pr = min(max(prow, 0), N);
-        d_ok = j > 0 &&
-               cell(plane, pr, min(max(j - 1, 0), L), nce, L1, g) + sub ==
-                   here;
-        v_ok = cell(plane, pr, jc, nce, L1, g) + g == here;
-      }
-      const unsigned bd = __ballot_sync(kFull, d_ok);
-      const unsigned bv = __ballot_sync(kFull, v_ok);
-      if (!any_d && bd) {
-        row_d = __shfl_sync(kFull, prow, __ffs(bd) - 1);
-        any_d = true;
-      }
-      if (!any_v && bv) {
-        row_v = __shfl_sync(kFull, prow, __ffs(bv) - 1);
-        any_v = true;
-      }
-    }
-    // priority: virtual row, diag, vert, horizontal
-    const int move = r < 0 ? 3 : any_d ? 0 : any_v ? 1 : 3;
-    --k;
-    if (lane == 0) {
-      pnw[k] = move == 3 ? -1 : u;
-      ppw[k] = move == 1 ? -1 : j - 1;
-    }
-    if (move == 0) {
-      r = row_d - 1;
-      --j;
-    } else if (move == 1) {
-      r = row_v - 1;
-    } else {
-      --j;
-    }
-  }
-  if (lane == 0) k0s[w] = k;
+  cga::nwtb_block(seq + (size_t)w * L, order + wn, rank + wn, npred + wn,
+                  base + wn, nsucc + wn, pred + wn * P, slens[w],
+                  node_counts[w], planes + (size_t)w * (N + 1) * (L + 1), pnw,
+                  ppw, N, P, L, match, mismatch, g, band_width, smem, k0s + w,
+                  band_oks + w);
 }
 
 }  // namespace
@@ -287,12 +91,9 @@ extern "C" int cga_poa_nwtb(const void* seq, const void* order,
                             void* band_ok, int W, int N, int P, int L,
                             int match, int mismatch, int gap, int band_width,
                             void* stream) {
-  // about four columns a thread; a thread takes at most kMaxChunk
-  const int want = ((L + 1 + 3) / 4 + 31) / 32 * 32;
-  const int threads = want < 32 ? 32 : (want > 1024 ? 1024 : want);
-  if ((long long)threads * kMaxChunk < L + 1)
-    return (int)cudaErrorInvalidValue;
-  const long long smem = 4LL * (L + 3LL * N + (long long)N * P);
+  const int threads = cga::nwtb_threads(L);
+  if (threads == 0) return (int)cudaErrorInvalidValue;
+  const long long smem = 4LL * cga::nwtb_scratch_ints(N, P, L);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         poa_nwtb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -26,7 +26,7 @@
 // active nodes (O(nc^2) shared-memory reads, broadcast to the block), so no
 // sort pass is needed.  Many windows run at once, one block each.
 
-#include "common.cuh"
+#include "poa_topsort.cuh"
 
 namespace {
 
@@ -52,52 +52,18 @@ __global__ void poa_topsort_kernel(const int32_t* __restrict__ level_in,
 
   for (int u = tid; u < N; u += nt) {
     la[u] = u < nc ? max(level_in[off + u], 0) : 0;
-    np[u] = min(npred[off + u], P);
+    np[u] = npred[off + u];
   }
   for (int i = tid; i < N * P; i += nt) pr[i] = pred[off * P + i];
   __syncthreads();
 
-  int changed = 1;
-  for (int it = 0; changed && it < N + 2; ++it) {
-    int local = 0;
-    for (int u = tid; u < N; u += nt) {
-      const int v = la[u];
-      int nv = v;
-      if (u < nc) {
-        int m = -1;  // an empty slot reads -1
-        for (int p = 0; p < np[u]; ++p) {
-          const int q = pr[u * P + p];
-          m = max(m, (q >= 0 && q < N) ? la[q] : -1);
-        }
-        nv = max(m + 1, 0);
-      }
-      lb[u] = nv;
-      local |= nv != v;
-    }
-    changed = __syncthreads_or(local);
-    int32_t* t = la;
-    la = lb;
-    lb = t;
-  }
-
-  const int nce = min(max(nc, 0), N);
-  for (int u = tid; u < N; u += nt) {
-    level_out[off + u] = la[u];
-    int r = u;  // inactive nodes keep id order after all active ones
-    if (u < nce) {
-      const int ku = (int)((unsigned)la[u] * (unsigned)N + (unsigned)u);
-      r = 0;
-      for (int v = 0; v < nce; ++v)
-        r += (int)((unsigned)la[v] * (unsigned)N + (unsigned)v) < ku;
-    }
-    rank[off + u] = r;
-    order[off + r] = u;
-  }
+  int changed;
+  const int32_t* lv = cga::topsort_levels(la, lb, np, pr, nc, N, P, &changed);
+  cga::topsort_place(lv, nc, N, level_out + off, order + off, rank + off);
   if (tid == 0) ok[w] = !changed;
 }
 
 }  // namespace
-
 // Launches the kernel on `stream`; returns cudaGetLastError() as an int.
 // level_in, npred (W, N), pred (W, N, P), node_count (W,) int32; writes
 // level_out, order, rank (W, N) and ok (W,) int32.

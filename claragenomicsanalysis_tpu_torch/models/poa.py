@@ -1,21 +1,26 @@
-"""Batched partial-order alignment consensus — the cudapoa counterpart, in
-PyTorch (port of ``claragenomicsanalysis_tpu/models/poa.py``).
+"""Batched partial-order alignment, consensus and MSA — the cudapoa
+counterpart, in PyTorch (port of ``claragenomicsanalysis_tpu/models/poa.py``).
 
 ``create_batch(...)`` -> ``Batch`` with ``add_poa_group`` /
-``generate_poa`` / ``get_consensus`` / ``get_msa`` / ``reset``, and the
-per-window ``StatusType`` rules of the JAX package.  The work runs on an
-explicit ``torch.device``: on ``cuda`` through the hand-written kernels of
-ops/, on ``cpu`` through their plain PyTorch versions.
+``generate_poa`` / ``get_consensus`` / ``get_msa`` / ``get_graphs`` /
+``reset``, and the per-window ``StatusType`` rules of the JAX package.  The
+work runs on an explicit ``torch.device``: on ``cuda`` through the
+hand-written kernels of ops/, on ``cpu`` through their plain PyTorch
+versions.  ``kernel`` names which kernels run there, with the same outputs:
 
-All windows of a launch go through each step together.  Per added
-sequence the host enqueues B7 topsort -> B5 graph NW and traceback -> B6
-add-alignment (plus a few elementwise status updates) with no sync in
-between; after the last one, B7 once more and B8 consensus.
-``generate_poa`` only enqueues; ``get_consensus`` waits for the results.
-Windows go into launches by the device bytes each needs
-(:func:`window_bytes`, mostly B5's score plane) under ``POA_MEM_BUDGET``;
-each window's result does not depend on the others, so the cut never
-changes a result.
+- ``"lockstep"`` (the default, the JAX package's ``backend="pallas2"``): all
+  windows of a launch go through each step together, one kernel per step
+  (``ops.poa_window.run_windows``);
+- ``"window"`` (the JAX package's ``backend="pallas"``): one kernel runs the
+  whole POA of each window (``ops.poa_window.poa_window``).
+
+``generate_poa`` only enqueues; ``get_consensus`` and ``get_msa`` wait for
+the results.  The MSA (``output_mask`` with ``OutputType.MSA``) costs the
+per-sequence ``paths`` in the graph state and the gapped rows; a
+consensus-only batch carries neither.  Windows go into launches by the
+device bytes each needs (:func:`window_bytes`, mostly the graph NW's score
+plane) under ``POA_MEM_BUDGET``; each window's result does not depend on
+the others, so the cut never changes a result.
 """
 
 import itertools
@@ -25,12 +30,10 @@ import torch
 
 from ..core.config import BatchSize, PoaScores
 from ..core.status import OutputType, StatusType
-from ..ops.poa_add import add_alignment
-from ..ops.poa_consensus import consensus
-from ..ops.poa_nwtb import graph_nw_traceback, plane_bytes
-from ..ops.poa_state import init_level, init_state
-from ..ops.poa_topsort import topsort
+from ..ops.poa_nwtb import plane_bytes
+from ..ops.poa_window import poa_window, run_windows
 from ..utils.genomeutils import BASES, encode
+from ..utils.graph import DirectedGraph
 from ..utils.profiling import trace_range
 
 #: device-memory budget of one launch's windows (the JAX package's
@@ -38,66 +41,33 @@ from ..utils.profiling import trace_range
 #: same 1 GiB)
 POA_MEM_BUDGET = 1 << 30
 
-_LOOP = int(StatusType.LOOP_COUNT_EXCEEDED_UPPER_BOUND)
-_BAND = int(StatusType.EXCEEDED_BAND_WIDTH)
-_OK = int(StatusType.SUCCESS)
+KERNELS = ("lockstep", "window")
 #: consensus letter per code + 1 slot for N (codes < 0)
 _CHARS = np.frombuffer((BASES + "N").encode(), dtype=np.uint8)
+#: MSA letter per code + 1 slot for a gap (codes < 0)
+_MSA_CHARS = np.frombuffer((BASES + "-").encode(), dtype=np.uint8)
 
 
-def window_bytes(bs: BatchSize) -> int:
-    """Device bytes one window holds during a launch: B5's score plane,
-    two copies of the graph state (B6 writes a new one), the path and the
-    window's sequences."""
+def window_bytes(bs: BatchSize, msa: bool = False) -> int:
+    """Device bytes one window holds during a launch, by either route: the
+    graph NW's score plane, two copies of the graph state (the add writes a
+    new one), the path and the window's sequences; with the MSA also the two
+    states' ``paths`` and the rows."""
     N, L, S = bs.padded_nodes, bs.padded_seq, bs.max_sequences_per_poa
     P, A = bs.max_pred_per_node, bs.max_aligned_per_node
     state = 4 * N * (6 + 2 * P + A)
-    return plane_bytes(N, L) + 2 * state + 8 * (N + L) + 8 * S * L
+    total = plane_bytes(N, L) + 2 * state + 8 * (N + L) + 8 * S * L
+    if msa:
+        total += 2 * 4 * S * L + 4 * S * N
+    return total
 
 
-def launch_chunks(n_windows: int, bs: BatchSize) -> list[range]:
+def launch_chunks(n_windows: int, bs: BatchSize,
+                  msa: bool = False) -> list[range]:
     """Windows 0..n_windows-1 cut into successive launches, each within
     POA_MEM_BUDGET (a launch holds at least one window)."""
-    n = max(1, POA_MEM_BUDGET // window_bytes(bs))
+    n = max(1, POA_MEM_BUDGET // window_bytes(bs, msa))
     return [range(s, min(s + n, n_windows)) for s in range(0, n_windows, n)]
-
-
-def run_windows(bs: BatchSize, sc: PoaScores, banded: bool, seqs, weights,
-                lens, n_seqs):
-    """Consensus of one launch of windows, all tensors on one device.
-
-    seqs, weights: (W, S, L) int32; lens: (W, S) int32; n_seqs: (W,) int32.
-    Returns (codes (W, MC), covs (W, MC), length (W,), status (W,))."""
-    S = bs.max_sequences_per_poa
-    bw = bs.band_width if banded else 0
-    state = init_state(bs, seqs[:, 0], weights[:, 0], lens[:, 0])
-    level = init_level(bs.padded_nodes, lens[:, 0])
-    for s in range(1, S):
-        alive = (s < n_seqs) & (state.status == _OK)
-        with trace_range("poa.topsort"):
-            new_level, order, rank, ok = topsort(
-                level, state.npred, state.pred, state.node_count)
-        with trace_range("poa.nwtb"):
-            pn, pp, k0, band_ok = graph_nw_traceback(
-                seqs[:, s], order, rank, state.npred, state.base,
-                state.nsucc, state.pred, lens[:, s], state.node_count, alive,
-                sc, bw)
-        act = alive & band_ok
-        with trace_range("poa.add"):
-            new = add_alignment(state, pn, pp, seqs[:, s], weights[:, s], k0,
-                                act, bs.max_nodes_per_window)
-        status = torch.where(act & ~ok, _LOOP, new.status)
-        status = torch.where(alive & ~band_ok, _BAND, status)
-        state = new._replace(status=status.to(torch.int32))
-        level = torch.where(alive[:, None], new_level, level)
-    with trace_range("poa.topsort"):
-        _, _, rank, _ = topsort(level, state.npred, state.pred,
-                                state.node_count)
-    with trace_range("poa.consensus"):
-        codes, covs, length = consensus(
-            state.npred, state.pred, state.predw, state.base, state.cov,
-            rank, state.node_count, bs.max_consensus_size)
-    return codes, covs, length, state.status
 
 
 class Batch:
@@ -109,12 +79,12 @@ class Batch:
                  scores: PoaScores | None = None,
                  output_mask: int = OutputType.CONSENSUS,
                  max_poas: int = 1024, banded_alignment: bool = False,
-                 device="cuda"):
+                 device="cuda", kernel: str = "lockstep"):
         self.output_mask = OutputType(output_mask)
-        if self.output_mask & OutputType.MSA:
-            raise NotImplementedError(
-                "OutputType.MSA needs the MSA kernel (B9), which the port "
-                "does not have yet (ROADMAP A.4)")
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {KERNELS}, not "
+                             f"{kernel!r}")
+        self.kernel = kernel
         self.batch_size = batch_size or BatchSize()
         self.scores = scores or PoaScores()
         self.max_poas = max_poas
@@ -190,21 +160,34 @@ class Batch:
             weights.reshape(-1)[flat] = w
         return seqs, weights, lens, n_seqs
 
+    @property
+    def _msa(self) -> bool:
+        return bool(self.output_mask & OutputType.MSA)
+
+    def _launches(self):
+        """Each launch's windows, as (seqs, weights, lens, n_seqs) tensors on
+        the batch's device."""
+        arrays = [torch.from_numpy(a).to(self.device)
+                  for a in self._pack_arrays()]
+        for c in launch_chunks(len(self._groups), self.batch_size, self._msa):
+            yield tuple(a[c.start:c.stop] for a in arrays)
+
     def generate_poa(self) -> None:
         """Pack the windows and enqueue their launches; returns without
         waiting for the device."""
         if not self._groups:
             self._out = (np.zeros((0, 0), np.int32),) * 2 + (
+                np.zeros(0, np.int32), np.zeros((0, 0, 0), np.int32)) + (
                 np.zeros(0, np.int32),) * 2
             return
+        bs, sc, banded = self.batch_size, self.scores, self.banded_alignment
         with trace_range("poa.generate"):
-            arrays = [torch.from_numpy(a).to(self.device)
-                      for a in self._pack_arrays()]
-            outs = [run_windows(self.batch_size, self.scores,
-                                self.banded_alignment,
-                                *(a[c.start:c.stop] for a in arrays))
-                    for c in launch_chunks(len(self._groups),
-                                           self.batch_size)]
+            if self.kernel == "window":
+                outs = [poa_window(*launch, bs, sc, banded, self._msa)
+                        for launch in self._launches()]
+            else:
+                outs = [run_windows(bs, sc, banded, *launch, self._msa)[:6]
+                        for launch in self._launches()]
             self._out_dev = tuple(torch.cat(parts) for parts in zip(*outs))
 
     def _ensure(self):
@@ -219,15 +202,13 @@ class Batch:
         """Returns (consensus list[str], coverage list[list[int]],
         statuses list[StatusType])."""
         self._ensure()
-        codes, covs, lengths, dstat = self._out
+        codes, covs, lengths, _, _, dstat = self._out
         # negative codes are ambiguous-base (N) nodes, kept in place
         chars = _CHARS[np.where(np.asarray(codes) >= 0,
                                 np.clip(codes, 0, 3), 4)]
         out_s, out_c, out_st = [], [], []
         for wi in range(len(self._groups)):
-            st = self._host_status[wi]
-            if st == StatusType.SUCCESS:
-                st = StatusType(int(dstat[wi]))
+            st = self._status(wi, dstat)
             if st != StatusType.SUCCESS:
                 out_s.append("")
                 out_c.append([])
@@ -239,12 +220,66 @@ class Batch:
             out_st.append(StatusType.SUCCESS)
         return out_s, out_c, out_st
 
+    def _status(self, wi: int, dstat) -> StatusType:
+        """The window's status: the host's refusal wins over the device's."""
+        st = self._host_status[wi]
+        return StatusType(int(dstat[wi])) if st == StatusType.SUCCESS else st
+
     def get_msa(self):
-        """Returns (msa list[list[str]], statuses); every window reports
-        OUTPUT_TYPE_UNAVAILABLE, since a batch here never computes the
-        MSA."""
-        n = len(self._groups)
-        return [[] for _ in range(n)], [StatusType.OUTPUT_TYPE_UNAVAILABLE] * n
+        """Returns (msa list[list[str]], statuses): per window one gapped
+        row (``-`` for a gap) per sequence, all ``n_cols`` long; [] for a
+        window that failed.  A batch made without ``OutputType.MSA``
+        reports OUTPUT_TYPE_UNAVAILABLE for every window."""
+        if not self._msa:
+            n = len(self._groups)
+            return ([[] for _ in range(n)],
+                    [StatusType.OUTPUT_TYPE_UNAVAILABLE] * n)
+        self._ensure()
+        _, _, _, rows, n_cols, dstat = self._out
+        chars = _MSA_CHARS[np.where(np.asarray(rows) >= 0,
+                                    np.clip(rows, 0, 3), 4)]
+        out_m, out_st = [], []
+        for wi, (group, _) in enumerate(self._groups):
+            st = self._status(wi, dstat)
+            out_st.append(st)
+            if st != StatusType.SUCCESS:
+                out_m.append([])
+                continue
+            nc = int(n_cols[wi])
+            out_m.append([chars[wi, si, :nc].tobytes().decode()
+                          for si in range(len(group))])
+        return out_m, out_st
+
+    def get_graphs(self):
+        """DirectedGraph views of the POA graphs the device built, one per
+        window (None for a window that failed): node u labelled
+        ``"<base>:<coverage>"``, one edge per filled pred slot with its
+        weight.  The export makes its own run of the lockstep route (the
+        only one that hands back the final graph state) and keeps nothing
+        on the device afterwards."""
+        if not self._groups:
+            return []
+        parts = []
+        for launch in self._launches():
+            st = run_windows(self.batch_size, self.scores,
+                             self.banded_alignment, *launch)[6]
+            parts.append([t.cpu().numpy() for t in (
+                st.base, st.cov, st.npred, st.pred, st.predw, st.node_count,
+                st.status)])
+        base, cov, npred, pred, predw, ncount, dstat = (
+            np.concatenate(p) for p in zip(*parts))
+        graphs = []
+        for wi in range(len(self._groups)):
+            if self._status(wi, dstat) != StatusType.SUCCESS:
+                graphs.append(None)
+                continue
+            g = DirectedGraph()
+            for u in range(int(ncount[wi])):
+                g.set_node_label(u, f"{BASES[base[wi, u]]}:{int(cov[wi, u])}")
+                for p in range(int(npred[wi, u])):
+                    g.add_edge(int(pred[wi, u, p]), u, int(predw[wi, u, p]))
+            graphs.append(g)
+        return graphs
 
     def reset(self) -> None:
         self._groups.clear()
@@ -260,9 +295,12 @@ def create_batch(batch_size: BatchSize | None = None,
                  mismatch_score: int | None = None,
                  match_score: int | None = None,
                  banded_alignment: bool = False,
-                 device="cuda") -> Batch:
-    """Factory with the JAX package's arguments (its ``backend`` and
-    ``mesh`` excepted); the band width comes from BatchSize.band_width."""
+                 device="cuda", kernel: str = "lockstep") -> Batch:
+    """Factory with the JAX package's arguments (its ``mesh`` excepted); the
+    band width comes from BatchSize.band_width.  ``device`` is where the
+    work runs; ``kernel`` (``"lockstep"`` or ``"window"``, the counterpart
+    of the JAX ``backend="pallas2"`` / ``"pallas"``) names which hand-written
+    kernels run on a card, with the same outputs either way."""
     if scores is None and any(v is not None for v in
                               (gap_score, mismatch_score, match_score)):
         d = PoaScores()
@@ -271,4 +309,4 @@ def create_batch(batch_size: BatchSize | None = None,
             mismatch_score=mismatch_score if mismatch_score is not None else d.mismatch_score,
             gap_score=gap_score if gap_score is not None else d.gap_score)
     return Batch(batch_size, scores, output_mask, max_poas, banded_alignment,
-                 device)
+                 device, kernel)

@@ -36,8 +36,10 @@ SIGNATURES = {
     "cga_myers": (_PTR,) * 6 + (_INT,) * 4 + (_PTR,),
     "cga_poa_topsort": (_PTR,) * 8 + (_INT,) * 3 + (_PTR,),
     "cga_poa_nwtb": (_PTR,) * 15 + (_INT,) * 8 + (_PTR,),
-    "cga_poa_add": (_PTR,) * 16 + (_INT,) * 6 + (_PTR,),
+    "cga_poa_add": (_PTR,) * 17 + (_INT,) * 8 + (_PTR,),
     "cga_poa_consensus": (_PTR,) * 10 + (_INT,) * 4 + (_PTR,),
+    "cga_poa_msa": (_PTR,) * 10 + (_INT,) * 6 + (_PTR,),
+    "cga_poa_window": (_PTR,) * 14 + (_INT,) * 13 + (_PTR,),
 }
 
 

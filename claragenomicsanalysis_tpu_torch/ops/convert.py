@@ -59,25 +59,29 @@ def to_reference(q, qlen, t, tlen, tb=None) -> tuple:
 def poa_state_from_reference(state, device="cpu"):
     """The JAX package's POA state, vmapped over windows (``poa_ops.PoaState``
     or any object with its fields, as NumPy-convertible (W, ...) arrays) ->
-    the port's ``ops.poa_state.PoaState`` on ``device``.  The JAX state's
-    ``paths``, which only the MSA reads, is dropped."""
+    the port's ``ops.poa_state.PoaState`` on ``device``, ``paths``
+    included (None where the given state has none or holds None)."""
     from .poa_state import PoaState
     out = []
     for name in PoaState._fields:
-        a = np.asarray(getattr(state, name))
+        a = getattr(state, name, None)
+        if a is None and name == "paths":
+            out.append(None)
+            continue
+        a = np.asarray(a)
         if a.dtype != np.int32:
             raise ValueError(f"{name}: want int32, got {a.dtype}")
         out.append(torch.from_numpy(np.array(a)).to(device))
     st = PoaState(*out)
     W = st.node_count.shape[0]
-    if any(t.shape[0] != W for t in st):
+    if any(t.shape[0] != W for t in st.tensors()):
         raise ValueError("window counts of the state's fields disagree")
     return st
 
 
 def poa_state_to_reference(state) -> dict:
     """The port's ``PoaState`` -> a dict of NumPy arrays named as the JAX
-    ``PoaState``'s fields (``paths`` excepted), for
-    ``jax_state._replace(**d)``."""
+    ``PoaState``'s fields, for ``jax_state._replace(**d)``; ``paths`` is in
+    it when the state carries it."""
     return {name: t.detach().cpu().numpy()
-            for name, t in zip(state._fields, state)}
+            for name, t in zip(state._fields, state) if t is not None}

@@ -16,10 +16,14 @@ and applies the canonical rules of ``poa_ops.add_alignment``:
   node gets ``min(w[prev_pos], w)``, added to an existing slot or inserted
   in ascending pred order;
 - overflows set a sticky status, node over clique over edge, and their
-  clipped writes still happen: the consensus then reads that state.
+  clipped writes still happen: the consensus then reads that state;
+- where the state carries ``paths`` (the MSA is asked for), row
+  ``clip(seq_idx, 0, S - 1)`` becomes this sequence's walk: -1 everywhere,
+  then ``row[clip(pos, 0, L - 1)] = target`` per consumed base.
 
-Only windows with ``act`` set change.  The function is pure: it returns a
-new state and leaves its input as it was.
+Only windows with ``act`` set change (a window without it keeps its
+``paths`` row too).  The function is pure: it returns a new state and
+leaves its input as it was.
 
 - :func:`add_alignment` is the entry point (kernel ``csrc/poa_add.cu`` for
   CUDA tensors, counted in ``add_alignment.launches``; the plain version
@@ -44,7 +48,7 @@ _BIG = 2**30
 MAX_ALIGNED = 63
 
 
-def _check(state: PoaState, pn, pp, seq, weights, k0, act):
+def _check(state: PoaState, pn, pp, seq, weights, k0, act, seq_idx):
     W, N = state.base.shape
     L = seq.shape[1]
     if pn.shape != (W, N + L) or pp.shape != pn.shape \
@@ -52,7 +56,12 @@ def _check(state: PoaState, pn, pp, seq, weights, k0, act):
             or k0.shape != (W,) or act.shape != (W,):
         raise ValueError("want pn/pp (W, N + L), seq/weights (W, L), "
                          "k0/act (W,)")
-    tensors = tuple(state) + (pn, pp, seq, weights, k0)
+    if state.paths is not None and (
+            seq_idx is None or state.paths.dim() != 3
+            or state.paths.shape[0] != W or state.paths.shape[2] != L):
+        raise ValueError("a state with paths wants paths (W, S, L) and a "
+                         "seq_idx")
+    tensors = state.tensors() + (pn, pp, seq, weights, k0)
     if any(t.dtype != torch.int32 for t in tensors) \
             or act.dtype != torch.bool:
         raise ValueError("add_alignment takes int32 tensors and a bool act")
@@ -63,11 +72,13 @@ def _check(state: PoaState, pn, pp, seq, weights, k0, act):
 
 
 def add_alignment_torch(state: PoaState, pn, pp, seq, weights, k0, act,
-                        max_nodes: int) -> PoaState:
+                        max_nodes: int, seq_idx: int | None = None
+                        ) -> PoaState:
     """Plain PyTorch version of :func:`add_alignment`: the same output."""
-    _check(state, pn, pp, seq, weights, k0, act)
+    _check(state, pn, pp, seq, weights, k0, act, seq_idx)
     st = state.clone()
-    base, cov, npred, pred, predw, nsucc, nalig, alig, node_count, status = st
+    (base, cov, npred, pred, predw, nsucc, nalig, alig, node_count, status,
+     paths) = st
     W, N, P = pred.shape
     A = alig.shape[2]
     L = seq.shape[1]
@@ -77,6 +88,7 @@ def add_alignment_torch(state: PoaState, pn, pp, seq, weights, k0, act,
     arP = torch.arange(P, device=dev)
     prev = torch.full((W,), -1, dtype=i32, device=dev)
     prev_pos = torch.full((W,), -1, dtype=i32, device=dev)
+    path_row = torch.full((W, L), -1, dtype=i32, device=dev)
 
     def at(arr, rows, idx, fill):
         """arr[rows, idx], ``fill`` where idx is outside [0, arr.shape[1])."""
@@ -181,13 +193,18 @@ def add_alignment_torch(state: PoaState, pn, pp, seq, weights, k0, act,
                           (overflow_edge, _EDGE_OVF)):
             s = torch.where((s == _OK) & ovf, code, s)
         status[g] = s
+        path_row[g[consume], pos.clamp(0, L - 1)[consume].long()] = \
+            target[consume].to(i32)
         prev[g] = torch.where(consume, target, pv).to(i32)
         prev_pos[g] = torch.where(consume, pos, prev_pos[g])
+    if paths is not None:
+        s_row = min(max(seq_idx, 0), paths.shape[1] - 1)
+        paths[:, s_row] = torch.where(act[:, None], path_row, paths[:, s_row])
     return st
 
 
 def add_alignment(state: PoaState, pn, pp, seq, weights, k0, act,
-                  max_nodes: int) -> PoaState:
+                  max_nodes: int, seq_idx: int | None = None) -> PoaState:
     """The graph of every window with ``act`` set, with the path
     ``pn[k0:], pp[k0:]`` of ``seq`` (weights ``weights``) folded in.
 
@@ -197,32 +214,41 @@ def add_alignment(state: PoaState, pn, pp, seq, weights, k0, act,
       seq, weights: (W, L) int32.
       act: (W,) bool, the windows to change.
       max_nodes: BatchSize.max_nodes_per_window.
+      seq_idx: which sequence of the window this is, the ``paths`` row it
+        writes; needed only when the state carries ``paths``.
 
     Returns:
       the new PoaState.
     """
     if seq.device.type == "cpu":
         return add_alignment_torch(state, pn, pp, seq, weights, k0, act,
-                                   max_nodes)
-    _check(state, pn, pp, seq, weights, k0, act)
+                                   max_nodes, seq_idx)
+    _check(state, pn, pp, seq, weights, k0, act, seq_idx)
     if seq.device.type != "cuda":
         raise ValueError(f"no kernel for device {seq.device}")
     pn, pp, seq, weights, k0 = (t.contiguous()
                                 for t in (pn, pp, seq, weights, k0))
-    out = PoaState(*(t.contiguous().clone() for t in state))
+    out = state.clone()
     W, N, P = out.pred.shape
     A, L = out.alig.shape[2], seq.shape[1]
     if W == 0:
         return out
+    # the kernel writes this sequence's row of paths, or none (S = 0)
+    S, s_row = 0, 0
+    if out.paths is not None:
+        S = out.paths.shape[1]
+        s_row = min(max(seq_idx, 0), S - 1)
     act_i = act.to(torch.int32)
     lib = _build.load()
     with torch.cuda.device(seq.device), kernel_span(
-            "poa_add", (state, pn, pp, seq, weights, k0, act, max_nodes),
-            W * (N + L)):
+            "poa_add", (state, pn, pp, seq, weights, k0, act, max_nodes,
+                        seq_idx), W * (N + L)):
         err = lib.cga_poa_add(
             pn.data_ptr(), pp.data_ptr(), seq.data_ptr(), weights.data_ptr(),
-            k0.data_ptr(), act_i.data_ptr(), *(t.data_ptr() for t in out),
-            W, N, P, A, L, max_nodes,
+            k0.data_ptr(), act_i.data_ptr(),
+            *(t.data_ptr() for t in out[:10]),
+            out.paths.data_ptr() if S else None,
+            W, N, P, A, L, S, s_row, max_nodes,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_add")
     add_alignment.launches += 1

@@ -10,11 +10,14 @@ P = ``max_pred_per_node``, A = ``max_aligned_per_node``:
   nsucc (W, N)     out-degree (a count: no successor lists are kept)
   nalig (W, N)     aligned-clique size; alig (W, N, A) sorted ascending
   node_count (W,), status (W,)
+  paths (W, S, L)  the node sequence s visits at its position j, -1 where
+                   none; None unless the MSA is asked for
 
-All int32.  The JAX state's ``paths`` (which node each sequence visits) is
-read only by the MSA, which this package does not compute yet, so it is not
-kept.  Nodes ``u < node_count`` are active; ``node_count`` may exceed N in a
-window whose first sequence overflowed (its status says so).
+All int32.  Only the MSA reads ``paths``, so a consensus-only run keeps it
+``None`` and neither allocates nor copies it: ``init_state(..., msa=False)``
+leaves it out, and every function that returns a new state copies it only
+when it is there.  Nodes ``u < node_count`` are active; ``node_count`` may
+exceed N in a window whose first sequence overflowed (its status says so).
 """
 
 from typing import NamedTuple
@@ -39,9 +42,17 @@ class PoaState(NamedTuple):
     alig: torch.Tensor
     node_count: torch.Tensor
     status: torch.Tensor
+    paths: torch.Tensor | None = None
 
     def clone(self) -> "PoaState":
-        return PoaState(*(t.clone() for t in self))
+        """A copy with its own storage (contiguous), ``paths`` included when
+        it is there."""
+        return PoaState(*(None if t is None else t.contiguous().clone()
+                          for t in self))
+
+    def tensors(self) -> tuple:
+        """The fields that are there (``paths`` left out when None)."""
+        return tuple(t for t in self if t is not None)
 
 
 def padget_cols(arr: torch.Tensor, idx: torch.Tensor,
@@ -57,12 +68,13 @@ def padget_cols(arr: torch.Tensor, idx: torch.Tensor,
 
 
 def init_state(bs: BatchSize, seq0: torch.Tensor, w0: torch.Tensor,
-               len0: torch.Tensor) -> PoaState:
+               len0: torch.Tensor, msa: bool = False) -> PoaState:
     """Each window's graph is the chain of its first sequence.
 
     seq0, w0: (W, L) int32 codes and weights; len0: (W,) int32.  A first
     sequence longer than ``max_nodes_per_window`` gives the window
-    NODE_COUNT_EXCEEDED_MAXIMUM_GRAPH_SIZE."""
+    NODE_COUNT_EXCEEDED_MAXIMUM_GRAPH_SIZE.  With ``msa`` the state carries
+    ``paths``: row 0 is ``0..len0 - 1``, every other entry -1."""
     W = seq0.shape[0]
     N, P, A = bs.padded_nodes, bs.max_pred_per_node, bs.max_aligned_per_node
     dev, i32 = seq0.device, torch.int32
@@ -85,8 +97,14 @@ def init_state(bs: BatchSize, seq0: torch.Tensor, w0: torch.Tensor,
         len0 > bs.max_nodes_per_window,
         int(StatusType.NODE_COUNT_EXCEEDED_MAXIMUM_GRAPH_SIZE),
         int(StatusType.SUCCESS)).to(i32)
+    paths = None
+    if msa:
+        S, L = bs.max_sequences_per_poa, bs.padded_seq
+        jj = torch.arange(L, dtype=i32, device=dev).expand(W, L)
+        paths = torch.full((W, S, L), -1, dtype=i32, device=dev)
+        paths[:, 0] = torch.where(jj < l0, jj, -1)
     return PoaState(base, cov, npred, pred, predw, nsucc, nalig, alig,
-                    len0.to(i32).clone(), status)
+                    len0.to(i32).clone(), status, paths)
 
 
 def init_level(N: int, len0: torch.Tensor) -> torch.Tensor:

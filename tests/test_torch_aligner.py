@@ -181,6 +181,13 @@ for alg in ("ukkonen", "myers", "hirschberg-myers"):
 with contextlib.redirect_stdout(io.StringIO()):
     assert cli.main(["poa", f"{data}/sample-windows.txt", "--max-windows",
                      "2", "--device", "cpu"]) == 0
+    assert cli.main(["poa", f"{data}/sample-windows.txt", "--max-windows",
+                     "2", "--msa", "--device", "cpu"]) == 0
+from claragenomicsanalysis_tpu_torch import create_batch
+b = create_batch(max_poas=1, device="cpu", kernel="window", output_mask=3)
+b.add_poa_group(["ACGT", "AGT"])
+assert b.get_msa()[0] == [["ACGT", "A-GT"]]
+assert "digraph" in b.get_graphs()[0].serialize_to_dot()
 al = create_aligner(300, 300, 2, algorithm="banded-escalate", device="cpu")
 al.add_alignment("ACGT" * 50, "ACGT" * 48)
 assert al.get_alignments()[0].edit_distance == 8

@@ -13,11 +13,13 @@ from claragenomicsanalysis_tpu.cpu import nw_oracle
 from claragenomicsanalysis_tpu.io import fasta as jax_fasta
 from claragenomicsanalysis_tpu.io import windows as jax_windows
 from claragenomicsanalysis_tpu.utils import genomeutils as jax_genomeutils
+from claragenomicsanalysis_tpu.utils import graph as jax_graph
 from claragenomicsanalysis_tpu.utils import mathutils as jax_mathutils
 from claragenomicsanalysis_tpu_torch.core import config, status
 from claragenomicsanalysis_tpu_torch.io import fasta, windows
 from claragenomicsanalysis_tpu_torch.ops import banded
-from claragenomicsanalysis_tpu_torch.utils import cigar, genomeutils, mathutils
+from claragenomicsanalysis_tpu_torch.utils import (cigar, genomeutils, graph,
+                                                   mathutils)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -151,3 +153,25 @@ def test_read_write_windows_equal(tmp_path):
     jax_windows.write_windows(ws, str(theirs))
     assert ours.read_bytes() == theirs.read_bytes()
     assert windows.read_windows(str(ours)) == ws
+
+
+def test_directed_graph_equal():
+    """The same calls give the same nodes, neighbours, weights and DOT text:
+    a repeated edge sums its weights, an unlabelled node prints its id."""
+    graphs = graph.DirectedGraph(), jax_graph.DirectedGraph()
+    for g in graphs:
+        g.add_edge(0, 1, 3)
+        g.add_edge(0, 1)
+        g.add_edge(2, 1, 5)
+        g.add_edge(1, 7)
+        g.set_node_label(0, "A:2")
+        g.set_node_label(7, "T:1")
+    ours, theirs = graphs
+    assert ours.serialize_to_dot() == theirs.serialize_to_dot()
+    assert ours.nodes() == theirs.nodes() == [0, 1, 2, 7]
+    for n in ours.nodes() + [9]:
+        assert ours.adjacent(n) == theirs.adjacent(n)
+    assert ours.edge_weight(0, 1) == theirs.edge_weight(0, 1) == 4
+    assert ours.edge_weight(1, 0) == theirs.edge_weight(1, 0) == 0
+    assert graph.DirectedGraph().serialize_to_dot() == \
+        jax_graph.DirectedGraph().serialize_to_dot()

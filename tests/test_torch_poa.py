@@ -1,6 +1,7 @@
 """The port's POA batch and ``cli poa`` (claragenomicsanalysis_tpu_torch)
-against the JAX package's ``create_batch(..., backend="xla")``, its CLI and
-the consensus golden.  Integer outputs, compared exactly."""
+against the JAX package's ``create_batch(..., backend="xla")``, its one-kernel
+POA in interpret mode, its CLI, ``cpu.poa_oracle`` and the consensus and MSA
+goldens.  Integer outputs and strings, compared exactly (tolerance 0)."""
 
 import contextlib
 import io
@@ -12,6 +13,7 @@ import torch
 
 from claragenomicsanalysis_tpu import cli as jax_cli
 from claragenomicsanalysis_tpu.core.config import BatchSize as JaxBatchSize
+from claragenomicsanalysis_tpu.models.poa import Batch as JaxBatch
 from claragenomicsanalysis_tpu.core.status import StatusType as JaxStatus
 from claragenomicsanalysis_tpu.models.poa import create_batch as jax_batch
 from claragenomicsanalysis_tpu.utils.genomeutils import (
@@ -58,19 +60,30 @@ def windows_for(name: str, seed: int = 0) -> list[list[str]]:
     return out
 
 
-def run_port(name: str, windows, device="cpu"):
+MSA = OutputType.CONSENSUS | OutputType.MSA
+
+
+def port_batch(name: str, windows, device="cpu", **kw_batch):
     kw, banded, _ = SHAPES[name]
     b = poa.create_batch(BatchSize(**kw), max_poas=len(windows),
-                         banded_alignment=banded, device=device)
-    stats = [b.add_poa_group(w) for w in windows]
+                         banded_alignment=banded, device=device, **kw_batch)
+    return b, [b.add_poa_group(w) for w in windows]
+
+
+def jax_ref_batch(name: str, windows, **kw_batch):
+    kw, banded, _ = SHAPES[name]
+    b = jax_batch(JaxBatchSize(**kw), max_poas=len(windows),
+                  banded_alignment=banded, backend="xla", **kw_batch)
+    return b, [b.add_poa_group(w) for w in windows]
+
+
+def run_port(name: str, windows, device="cpu", **kw_batch):
+    b, stats = port_batch(name, windows, device, **kw_batch)
     return stats, b.get_consensus()
 
 
 def run_jax(name: str, windows):
-    kw, banded, _ = SHAPES[name]
-    b = jax_batch(JaxBatchSize(**kw), max_poas=len(windows),
-                  banded_alignment=banded, backend="xla")
-    stats = [b.add_poa_group(w) for w in windows]
+    b, stats = jax_ref_batch(name, windows)
     return stats, b.get_consensus()
 
 
@@ -118,6 +131,11 @@ def test_window_bytes_counts_the_score_plane():
     assert 385 * 257 * 4 == 395_780 < poa.window_bytes(bs) < 500_000
     # the correction shape's 4,096 windows need more than one launch
     assert len(poa.launch_chunks(4096, bs)) == 2
+    # the MSA adds the two states' paths (S x L) and the rows (S x N)
+    assert poa.window_bytes(bs, msa=True) - poa.window_bytes(bs) == \
+        4 * (2 * 8 * 256 + 8 * 384)
+    assert len(poa.launch_chunks(4096, bs, msa=True)[0]) < \
+        len(poa.launch_chunks(4096, bs)[0])
 
 
 def test_batch_api_surface():
@@ -132,11 +150,23 @@ def test_batch_api_surface():
     assert b.get_consensus()[0] == ["ACGT", "ACGT"]
     assert b.get_msa() == ([[], []],
                            [StatusType.OUTPUT_TYPE_UNAVAILABLE] * 2)
+    assert [g.serialize_to_dot().count("->") for g in b.get_graphs()] == \
+        [3, 3]
     b.reset()
-    assert b.get_total_poas() == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        poa.create_batch(output_mask=OutputType.CONSENSUS | OutputType.MSA,
-                         device="cpu")
+    assert b.get_total_poas() == 0 and b.get_graphs() == []
+    for kernel in poa.KERNELS:
+        m = poa.create_batch(BatchSize(**SHAPES["small"][0]), max_poas=2,
+                             output_mask=MSA, device="cpu", kernel=kernel)
+        assert m.kernel == kernel and m.get_msa() == ([], [])
+        m.add_poa_group(["ACGT", "AGT"])
+        assert m.get_msa() == ([["ACGT", "A-GT"]], [StatusType.SUCCESS])
+    with pytest.raises(ValueError, match="kernel"):
+        poa.create_batch(device="cpu", kernel="auto")
+    # the JAX Batch's whole surface but its mesh
+    public = {n for n in vars(JaxBatch) if not n.startswith("_")}
+    assert public <= {n for n in vars(poa.Batch) if not n.startswith("_")}
+    assert {"add_poa_group", "generate_poa", "get_consensus", "get_msa",
+            "get_graphs", "get_total_poas", "batch_id", "reset"} <= public
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             poa.create_batch(device="cuda")
@@ -164,10 +194,11 @@ def test_cli_poa_banded_equals_jax_cli():
     assert len(out.splitlines()) == 8
 
 
-def test_cli_poa_msa_fails_clearly(capsys):
-    assert cli.main(["poa", f"{DATA}/sample-windows.txt", "--msa",
-                     "--device", "cpu"]) == 2
-    assert "ROADMAP A.4" in capsys.readouterr().err
+def test_cli_poa_msa_golden_on_cpu():
+    rc, out = run_cli(cli.main, ["poa", f"{DATA}/sample-windows.txt", "--msa",
+                                 "--device", "cpu"])
+    with open(os.path.join(DATA, "golden", "sample_msa.txt")) as f:
+        assert (rc, out) == (0, f.read())
 
 
 @pytest.mark.cuda

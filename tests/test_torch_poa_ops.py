@@ -8,7 +8,9 @@ caps under which node, clique and edge overflows all hit.  Each batch also
 holds an empty window, a window whose first sequence is empty, N bases
 inside sequences, a first sequence longer than ``max_nodes_per_window`` and
 a 2-base graph against a 60-base sequence (banded: cells that are sums on
-NEG).
+NEG).  The MSA is compared on the windows of status SUCCESS whose graph
+leaves node N - 1 unused: ``poa_ops``' drop-mode scatters wrap an id of -1
+onto that node, which the port (as the TPU kernel) does not.
 """
 
 import functools
@@ -23,11 +25,12 @@ from claragenomicsanalysis_tpu.core.config import BatchSize as JaxBatchSize
 from claragenomicsanalysis_tpu.core.config import PoaScores as JaxPoaScores
 from claragenomicsanalysis_tpu.core.status import StatusType
 from claragenomicsanalysis_tpu.ops import poa_ops
+from claragenomicsanalysis_tpu.ops.poa_pallas2 import _msa_pallas
 from claragenomicsanalysis_tpu.utils.genomeutils import (
     encode, generate_random_genome, mutate_sequence)
 from claragenomicsanalysis_tpu_torch.core.config import BatchSize, PoaScores
 from claragenomicsanalysis_tpu_torch.ops import (poa_add, poa_consensus,
-                                                 poa_nwtb, poa_state,
+                                                 poa_msa, poa_nwtb, poa_state,
                                                  poa_topsort)
 from claragenomicsanalysis_tpu_torch.ops.convert import (
     poa_state_from_reference, poa_state_to_reference)
@@ -152,10 +155,16 @@ def trajectory(name: str):
         state, level)
     cons = jax.jit(jax.vmap(lambda st, r: poa_ops.consensus(st, None, r, MC)))(
         state, fin[2])
+
+    def msa(st, order, rank):
+        col, n_cols = poa_ops.msa_columns(st, order, rank)
+        return poa_ops.msa_rows(st, col, n_cols, N), n_cols
+    rows = jax.jit(jax.vmap(msa))(state, fin[1], fin[2])
     return dict(bs=bs, arrays=(seqs, weights, lens, n_seqs), steps=steps,
                 state=state, level=level,
                 final_topsort=tuple(map(np.asarray, fin)),
-                consensus=tuple(map(np.asarray, cons)))
+                consensus=tuple(map(np.asarray, cons)),
+                msa=tuple(map(np.asarray, rows)))
 
 
 def port_bs(name: str) -> BatchSize:
@@ -188,10 +197,17 @@ def test_init_state_matches_poa_ops(name):
     tr = trajectory(name)
     seqs, weights, lens, _ = tr["arrays"]
     st = poa_state.init_state(port_bs(name), t(seqs[:, 0]), t(weights[:, 0]),
-                              t(lens[:, 0]))
+                              t(lens[:, 0]), msa=True)
     want = tr["steps"][0]["state"]
-    for field, got in poa_state_to_reference(st).items():
-        eq(got, getattr(want, field), field)
+    got = poa_state_to_reference(st)
+    assert set(got) == set(want._fields)
+    for field, g in got.items():
+        eq(g, getattr(want, field), field)
+    # a consensus-only state carries no paths, and nothing else differs
+    lean = poa_state.init_state(port_bs(name), t(seqs[:, 0]),
+                                t(weights[:, 0]), t(lens[:, 0]))
+    assert lean.paths is None
+    assert set(poa_state_to_reference(lean)) == set(want._fields) - {"paths"}
     eq(poa_state.init_level(port_bs(name).padded_nodes, t(lens[:, 0])),
        tr["steps"][0]["level"])
 
@@ -263,8 +279,10 @@ def test_score_plane_matches_poa_ops(name):
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_add_alignment_matches_poa_ops(name):
     """Every field of the state poa_ops.add_alignment returns (overflowed
-    windows and their clipped writes included) on the windows the add
-    touches; the others stay as they were."""
+    windows and their clipped writes included, and ``paths`` with this
+    sequence's row) on the windows the add touches; the others stay as
+    they were, their ``paths`` row too.  Without ``paths`` in the state the
+    other fields come out the same."""
     tr = trajectory(name)
     seqs, weights, _, _ = tr["arrays"]
     bs = port_bs(name)
@@ -273,13 +291,21 @@ def test_add_alignment_matches_poa_ops(name):
         pn, pp, k0, band_ok = st["nwtb"]
         act = st["alive"] & band_ok
         before = poa_state_from_reference(st["state"])
-        got = poa_add.add_alignment(before, t(pn), t(pp), t(seqs[:, s]),
-                                    t(weights[:, s]), t(k0), t(act),
-                                    bs.max_nodes_per_window)
+        args = (t(pn), t(pp), t(seqs[:, s]), t(weights[:, s]), t(k0), t(act),
+                bs.max_nodes_per_window)
+        got = poa_state_to_reference(poa_add.add_alignment(before, *args, s))
         keep = poa_state_to_reference(before)
-        for field, g in poa_state_to_reference(got).items():
+        assert set(got) == set(st["added"]._fields)
+        for field, g in got.items():
             eq(g[act], getattr(st["added"], field)[act], f"seq {s}: {field}")
             eq(g[~act], keep[field][~act], f"seq {s}: {field} (untouched)")
+        eq(keep["paths"], st["state"].paths, "the input state is left alone")
+        lean = poa_add.add_alignment(before._replace(paths=None), *args)
+        assert lean.paths is None
+        for field, g in poa_state_to_reference(lean).items():
+            eq(g, got[field], f"seq {s}: {field} without paths")
+    with pytest.raises(ValueError, match="seq_idx"):
+        poa_add.add_alignment(before, *args)
 
 
 @pytest.mark.parametrize("name", list(SHAPES))
@@ -292,6 +318,66 @@ def test_consensus_matches_poa_ops(name):
                                   port_bs(name).max_consensus_size)
     for g, w, n in zip(got, tr["consensus"], ("codes", "covs", "length")):
         eq(g, w, n)
+
+
+def comparable_msa_windows(tr) -> np.ndarray:
+    """Windows of status SUCCESS whose graph leaves node N - 1 unused."""
+    state = tr["state"]
+    return (state.status == StatusType.SUCCESS) & (
+        state.node_count < tr["bs"].padded_nodes)
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_msa_matches_poa_ops(name):
+    """rows and n_cols equal vmapped msa_columns + msa_rows(max_cols=N) on
+    the final states; every other window's values stay inside their
+    ranges."""
+    tr = trajectory(name)
+    N = tr["bs"].padded_nodes
+    ps = poa_state_from_reference(tr["state"])
+    rows, n_cols = poa_msa.msa(ps, t(tr["final_topsort"][1]))
+    want_rows, want_cols = tr["msa"]
+    ok = comparable_msa_windows(tr)
+    assert ok.sum() >= 2 and (~ok).sum() >= 2
+    eq(n_cols[ok], want_cols[ok], "n_cols")
+    eq(rows[ok], want_rows[ok], "rows")
+    assert rows.shape == want_rows.shape and rows.dtype == torch.int32
+    assert int(rows.min()) >= -1 and int(rows.max()) <= 3
+    assert int(n_cols.min()) >= 0 and int(n_cols.max()) <= N
+    # a row, its gaps removed, is its sequence wherever the columns grow
+    # along the sequence's path (a clique can get its column before a pred
+    # of one member has one, and then two positions share a column: the
+    # reference's rule, kept); an N base holds -1 like a gap
+    col, _ = poa_msa.msa_columns_torch(ps, t(tr["final_topsort"][1]))
+    seqs, _, lens, n_seqs = tr["arrays"]
+    n_rows = n_whole = 0
+    for w in np.flatnonzero(ok):
+        for si in range(int(n_seqs[w])):
+            path = tr["state"].paths[w, si, :lens[w, si]]
+            n_rows += 1
+            if (np.diff(col[w].numpy()[path]) <= 0).any():
+                continue
+            n_whole += 1
+            row = rows[w, si, :int(n_cols[w])].numpy()
+            want = seqs[w, si, :lens[w, si]]
+            eq(row[row >= 0], want[want >= 0], f"window {w} sequence {si}")
+    assert n_whole >= n_rows // 2 > 0
+    with pytest.raises(ValueError, match="paths"):
+        poa_msa.msa(ps._replace(paths=None), t(tr["final_topsort"][1]))
+
+
+def test_msa_matches_the_pallas_kernel_interpreted():
+    """The function of the TPU kernel itself, run in interpret mode, on the
+    small shape: rows and n_cols equal on every window (neither wraps an
+    out-of-range id)."""
+    tr = trajectory("small")
+    state = jax.tree_util.tree_map(jnp.asarray, tr["state"])
+    want_rows, want_cols = _msa_pallas(tr["bs"], True, state,
+                                       jnp.asarray(tr["final_topsort"][1]))
+    ps = poa_state_from_reference(tr["state"])
+    rows, n_cols = poa_msa.msa(ps, t(tr["final_topsort"][1]))
+    eq(n_cols, np.asarray(want_cols), "n_cols")
+    eq(rows, np.asarray(want_rows), "rows")
 
 
 def test_state_round_trip_and_checks():
@@ -308,6 +394,23 @@ def test_state_round_trip_and_checks():
         poa_topsort.topsort(ps.base, ps.npred, ps.pred[:1], ps.node_count)
 
 
+def test_state_without_paths_round_trips():
+    """A consensus-only state (paths None) crosses both ways without the
+    field; a reference object without paths converts too."""
+    tr = trajectory("small")
+    lean = poa_state_from_reference(tr["state"]._replace(paths=None))
+    assert lean.paths is None and len(lean.tensors()) == 10
+    back = poa_state_to_reference(lean)
+    assert set(back) == set(poa_state.PoaState._fields) - {"paths"}
+    for field, a in back.items():
+        eq(a, getattr(tr["state"], field), field)
+    assert lean.clone().paths is None
+    full = poa_state_from_reference(tr["state"])
+    copy = full.clone()
+    assert copy.paths.data_ptr() != full.paths.data_ptr()
+    eq(copy.paths, tr["state"].paths)
+
+
 # ------------------------------------------------------------------ the card
 
 
@@ -321,8 +424,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_kernels_match_plain_versions_on_card(name, cuda_device):
-    """B7, B5, B6 and B8 against their plain versions on the card, on every
-    evolved state of the trajectory, arrays equal."""
+    """B7, B5, B6 (with and without ``paths``), B8 and B9 against their
+    plain versions on the card, on every evolved state of the trajectory,
+    arrays equal."""
     tr = trajectory(name)
     seqs, weights, lens, _ = tr["arrays"]
     bs = port_bs(name)
@@ -346,9 +450,13 @@ def test_kernels_match_plain_versions_on_card(name, cuda_device):
             assert torch.equal(a, b)
         pn, pp, k0, band_ok = k
         args = (ps, pn, pp, t(seqs[:, s], d), t(weights[:, s], d), k0,
-                t(st["alive"], d) & band_ok, bs.max_nodes_per_window)
+                t(st["alive"], d) & band_ok, bs.max_nodes_per_window, s)
         for a, b in zip(poa_add.add_alignment(*args),
                         poa_add.add_alignment_torch(*args)):
+            assert torch.equal(a, b)
+        lean = (ps._replace(paths=None),) + args[1:-1]
+        for a, b in zip(poa_add.add_alignment(*lean).tensors(),
+                        poa_add.add_alignment_torch(*lean).tensors()):
             assert torch.equal(a, b)
     ps = poa_state_from_reference(tr["state"], device=d)
     args = (ps.npred, ps.pred, ps.predw, ps.base, ps.cov,
@@ -356,4 +464,7 @@ def test_kernels_match_plain_versions_on_card(name, cuda_device):
             bs.max_consensus_size)
     for a, b in zip(poa_consensus.consensus(*args),
                     poa_consensus.consensus_torch(*args)):
+        assert torch.equal(a, b)
+    order = t(tr["final_topsort"][1], d)
+    for a, b in zip(poa_msa.msa(ps, order), poa_msa.msa_torch(ps, order)):
         assert torch.equal(a, b)
