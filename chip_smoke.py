@@ -8,9 +8,14 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
 Phases, one line or more each:
   1. environment, the card's name, power limit and SM clock, and the kernel
      build (nvcc, from csrc/ in this checkout);
-  2. the banded-NW kernel against its plain PyTorch version on the card;
-  3. the traceback-decode kernel against its plain version on the same tb;
-  4. the port's ``align`` CLI on the bundled data against the golden file;
+  2. the banded-NW kernels against their plain PyTorch versions on the card:
+     the anti-diagonal one (B1) and the row one (B3, at r = 1, 3, 8, 31, 64
+     and two bands wider than a block's 1,024 threads), each row result
+     also against B1's scores and paths;
+  3. the traceback-decode kernels (B2, both layouts) against their plain
+     versions on the same tb;
+  4. the port's ``align`` CLI on the bundled data against the golden file,
+     through ``create_aligner(..., kernel="diag")`` and ``kernel="row"``;
   5. the ``ukkonen`` main path, ``create_aligner(..., device="cuda")`` then
      ``align_all``, on 1,024 pairs of 2-10 kb at about 5 % divergence, with
      its checks, launch counts and the kernels' CUDA-event times inside the
@@ -60,10 +65,17 @@ Phases, one line or more each:
      windows with the MSA and on phase 12's without: outputs equal to the
      lockstep route's, its wall beside the lockstep route's on the same
      data, B10 against its plain version at its largest launch; at phase
-     13's shape the route must refuse the plan with the sizes named.
+     13's shape the route must refuse the plan with the sizes named;
+ 16. the row route, ``create_aligner(..., kernel="row")``, on phase 5's
+     1,024 pairs (``ukkonen``): results equal to phase 5's pair for pair,
+     B3 and B2's row decode launched and B1 and B2's diag decode not, its
+     wall beside phase 5's, each kernel against its plain version at its
+     largest launch with times and bounds; then ``myers``,
+     ``hirschberg-myers`` and ``banded-escalate`` through it on phase 7's
+     subset, equal to the diag route.
 Then one JSON line describing every kernel: under ``paths``, for each main
 path (``ukkonen``, ``myers``, ``poa``, ``poa_deep``, ``poa_msa``,
-``poa_window``, ``poa_window_msa``), its launches in that
+``poa_window``, ``poa_window_msa``, ``ukkonen_row``), its launches in that
 run (counts zeroed just before it, read just after) and the kernel's time,
 plain time and bound (the least time the card could take for the same work)
 at that path's largest launch, and the kernel's device time in that run
@@ -96,8 +108,9 @@ SEED = 0                 # every input is made from it
 MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 SMS, INT32_LANES = 132, 64         # H100 SXM: SMs, int32 lanes per SM
 # int32 operations per unit of work, counted for the bounds (see PERF.md)
-OPS_PER_BAND_CELL = 7    # nw_diag: compare, 2 adds, 2 mins, 2 code selects
-OPS_PER_WALK_STEP = 16   # tb_decode: address, extract, pack, i/j update
+OPS_PER_BAND_CELL = 7    # nw_diag, nw_row: compare, 2 adds, 2 mins, 2 code
+                         # selects (one function: the same count for both)
+OPS_PER_WALK_STEP = 16   # tb_decode(_row): address, extract, pack, i/j update
 OPS_PER_MYERS_WORD = 27  # myers: one 32-bit word update (ops/myers_pallas.py)
 
 
@@ -172,19 +185,22 @@ def settle_heap() -> None:
     gc.freeze()
 
 
-ALIGNER_KERNELS = ("nw_diag", "tb_decode", "myers")
+ALIGNER_KERNELS = ("nw_diag", "tb_decode", "nw_row", "tb_decode_row", "myers")
 POA_KERNELS = ("poa_topsort", "poa_nwtb", "poa_add", "poa_consensus",
                "poa_msa", "poa_window")
 
 
 def wrappers() -> dict:
     """The kernel wrappers, by kernel name; each counts its launches."""
-    from claragenomicsanalysis_tpu_torch.ops import (myers, nw_diag, poa_add,
-                                                     poa_consensus, poa_msa,
-                                                     poa_nwtb, poa_topsort,
-                                                     poa_window, tb_decode)
+    from claragenomicsanalysis_tpu_torch.ops import (myers, nw_diag, nw_row,
+                                                     poa_add, poa_consensus,
+                                                     poa_msa, poa_nwtb,
+                                                     poa_topsort, poa_window,
+                                                     tb_decode)
     return {"nw_diag": nw_diag.banded_nw_diag,
             "tb_decode": tb_decode.decode_diag,
+            "nw_row": nw_row.banded_nw_row,
+            "tb_decode_row": tb_decode.decode_row,
             "myers": myers.myers_bottom_row,
             "poa_topsort": poa_topsort.topsort,
             "poa_nwtb": poa_nwtb.graph_nw_traceback,
@@ -289,12 +305,23 @@ def edge_pairs(rng, n: int):
     return pairs
 
 
+def wide_band_pairs(rng, n: int):
+    """n seeded pairs of 50-400 bases at ~30 % edits, the shape of the bands
+    banded-escalate widens on short reads, plus empty and N rows."""
+    pairs = []
+    for _ in range(n - 3):
+        a = rng.integers(0, 4, int(rng.integers(50, 401)))
+        pairs.append((to_str(a), to_str(mutate(a, round(0.3 * len(a)), rng))))
+    a = to_str(rng.integers(0, 4, 300))
+    return pairs + [("", a), (a[:200], ""), (a[:100] + "N" * 20, a[:120])]
+
+
 def phase_kernels(rng):
     """Phases 2 and 3: each kernel against its plain version on the card.
-    Returns the largest absolute differences seen."""
+    Returns the largest absolute differences seen, by kernel."""
     import numpy as np
     import torch
-    from claragenomicsanalysis_tpu_torch.ops import nw_diag, tb_decode
+    from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row, tb_decode
     from claragenomicsanalysis_tpu_torch.ops.convert import from_reference
     pairs = edge_pairs(rng, 256)
     q, qlen, t, tlen = from_reference(*pack(pairs), device="cuda")[:4]
@@ -333,24 +360,95 @@ def phase_kernels(rng):
               f"path_mismatches_vs_host={len(bad)}")
         check(d_p == 0 and d_st == 0 and not bad,
               f"tb_decode kernel disagrees with its plain version at r={r}")
-    return err_nw, err_tb
+    errs = {"nw_diag": err_nw, "tb_decode": err_tb}
+    errs |= phase_row_kernels(pairs, (1, 3, 8, 31, 64))
+    wide = phase_row_kernels(wide_band_pairs(rng, 64), (600, 2100))
+    return errs | {k: max(v, errs[k]) for k, v in wide.items()}
+
+
+def phase_row_kernels(pairs, radii) -> dict:
+    """B3 and B2's row decode against their plain versions on ``pairs`` at
+    each radius of ``radii``: scores and the whole tb, packed paths and
+    starts of the finite rows; the row route's scores and paths against
+    B1's.  -> the largest differences seen."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row, tb_decode
+    from claragenomicsanalysis_tpu_torch.ops.convert import from_reference
+    q, qlen, t, tlen = from_reference(*pack(pairs), device="cuda")[:4]
+    err_nw = err_tb = 0
+    for r in radii:
+        s_k, tb_k = nw_row.banded_nw_row(q, qlen, t, tlen, r)
+        torch.cuda.synchronize()
+        s_p, tb_p = nw_row.banded_nw_row_torch(q, qlen, t, tlen, r)
+        d_s = int((s_k.long() - s_p.long()).abs().max())
+        d_tb = int((tb_k.int() - tb_p.int()).abs().max())
+        err_nw = max(err_nw, d_s, d_tb)
+        ok = s_k < nw_row.INF
+        pk, sk = tb_decode.decode_row(tb_k, qlen, tlen, r)
+        torch.cuda.synchronize()
+        pp, sp = tb_decode.decode_row_torch(tb_k, qlen, tlen, r)
+        d_p = int((pk[ok].long() - pp[ok].long()).abs().max())
+        d_st = int((sk[ok].long() - sp[ok].long()).abs().max())
+        err_tb = max(err_tb, d_p, d_st)
+        s_d, tb_d = nw_diag.banded_nw_diag(q, qlen, t, tlen, r)
+        paths_d = tb_decode.traceback_paths_device(tb_d, qlen, tlen, r)
+        paths = tb_decode.unpack_paths(pk.cpu().numpy(), sk.cpu().numpy())
+        bad = [b for b in np.flatnonzero(ok.cpu().numpy())
+               if paths[b] != paths_d[b]]
+        W = nw_row.band_width_row(r)
+        print(f"phase 2 nw_row r={r}: B={len(pairs)} Lq={q.shape[1]} "
+              f"Lt={t.shape[1]} W={W} finite={int(ok.sum())} "
+              f"score_diff={d_s} tb_diff={d_tb}; "
+              f"phase 3 tb_decode_row: packed_diff={d_p} start_diff={d_st}; "
+              f"vs nw_diag: scores equal {torch.equal(s_k, s_d)}, "
+              f"path_mismatches={len(bad)}")
+        check(d_s == 0 and d_tb == 0,
+              f"nw_row kernel disagrees with its plain version at r={r}")
+        check(d_p == 0 and d_st == 0,
+              f"tb_decode_row kernel disagrees with its plain version at "
+              f"r={r}")
+        check(torch.equal(s_k, s_d) and not bad,
+              f"the row kernels differ from the diag kernels at r={r}")
+    return {"nw_row": err_nw, "tb_decode_row": err_tb}
 
 
 def phase_golden():
+    """Phase 4: ``cli align --device cuda`` against the golden, with the
+    aligner it makes built with each banded-NW kernel in turn (the CLI has
+    no kernel option, as the JAX CLI has no backend one), launches
+    counted."""
     from claragenomicsanalysis_tpu_torch import cli
+    from claragenomicsanalysis_tpu_torch.models import aligner
     data = os.path.join(ROOT, "data")
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["align", f"{data}/sample_queries.fasta",
-                       f"{data}/sample_targets.fasta", "--band-radius", "64",
-                       "--device", "cuda"])
     with open(os.path.join(data, "golden", "sample_align.txt")) as f:
         golden = f.read()
-    same = rc == 0 and buf.getvalue() == golden
-    print(f"phase 4 golden: align --device cuda vs data/golden/"
-          f"sample_align.txt: {'identical' if same else 'DIFFERENT'} "
-          f"({len(golden.splitlines())} lines)")
-    check(same, "align output differs from data/golden/sample_align.txt")
+    create = aligner.create_aligner
+    for kernel in ("diag", "row"):
+        buf = io.StringIO()
+        zero_launches()
+        aligner.create_aligner = lambda *a, **k: create(*a, kernel=kernel,
+                                                        **k)
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["align", f"{data}/sample_queries.fasta",
+                               f"{data}/sample_targets.fasta",
+                               "--band-radius", "64", "--device", "cuda"])
+        finally:
+            aligner.create_aligner = create
+        launches = read_launches()
+        same = rc == 0 and buf.getvalue() == golden
+        print(f"phase 4 golden: align --device cuda through create_aligner("
+              f"..., kernel=\"{kernel}\") vs data/golden/sample_align.txt: "
+              f"{'identical' if same else 'DIFFERENT'} "
+              f"({len(golden.splitlines())} lines); launches={launches}")
+        check(same, f"align output (kernel={kernel}) differs from "
+              f"data/golden/sample_align.txt")
+        used = ("nw_row", "tb_decode_row") if kernel == "row" else (
+            "nw_diag", "tb_decode")
+        check(all(launches[k] > 0 for k in used)
+              and sum(launches.values()) == sum(launches[k] for k in used),
+              f"kernel={kernel}: launches {launches}")
 
 
 def main_path_pairs(n: int, seed: int, lo: int = 2000, hi: int = 10000):
@@ -369,7 +467,7 @@ def main_path_pairs(n: int, seed: int, lo: int = 2000, hi: int = 10000):
     return pairs
 
 
-def run_aligner(pairs, algorithm: str, device="cuda"):
+def run_aligner(pairs, algorithm: str, device="cuda", kernel="diag"):
     """Align ``pairs`` with a fresh aligner sized to them; -> (results,
     wall seconds of align_all + get_alignments, ended by a sync)."""
     import torch
@@ -377,7 +475,7 @@ def run_aligner(pairs, algorithm: str, device="cuda"):
     aligner = create_aligner(max(len(a) for a, _ in pairs),
                              max(len(b) for _, b in pairs), len(pairs),
                              band_radius=64, algorithm=algorithm,
-                             device=device)
+                             device=device, kernel=kernel)
     for a, b in pairs:
         aligner.add_alignment(a, b)
     settle_heap()
@@ -428,7 +526,7 @@ def phase_main(pairs, sm_mhz: float):
           f"chunks={len(plan)} radii={sorted(set(radius.tolist()))} "
           f"max_memory_allocated={peak} B")
     check(launches == {"nw_diag": len(plan), "tb_decode": len(plan),
-                       "myers": 0},
+                       "nw_row": 0, "tb_decode_row": 0, "myers": 0},
           f"launches {launches} != one of B1 and B2 per chunk "
           f"({len(plan)} chunks)")
     check(kt.count() == {"nw_diag": len(plan), "tb_decode": len(plan)},
@@ -478,37 +576,54 @@ def phase_main(pairs, sm_mhz: float):
     for k, n_launch in launches.items():
         per.setdefault(k, {}).update(launches=n_launch,
                                      run_ms=dev_ms.get(k, 0.0))
-    return {"results": results, "radius": radius, "kernels": per}
+    return {"results": results, "radius": radius, "kernels": per,
+            "wall": wall}
 
 
-def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str) -> dict:
-    """B1 and B2 against their plain versions on these inputs, exactly
-    (B1: scores and the whole tb; B2: packed paths and starts, on B1's tb),
-    with times (kernel: mean of 5 launches; plain: one call) and bounds:
-    for B1 7 int32 operations per band cell, q, t and the lengths read once,
-    scores and tb written once; for B2 16 operations per step of the walk,
-    one tb byte read per step, the packed paths and starts written once."""
+def banded_kernels(kernel: str) -> tuple:
+    """(names, kernel functions and plain versions) of one banded-NW
+    route: the NW kernel and the decoder of its traceback layout."""
+    from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row, tb_decode
+    if kernel == "row":
+        return (("nw_row", "tb_decode_row"), nw_row.banded_nw_row,
+                nw_row.banded_nw_row_torch, tb_decode.decode_row,
+                tb_decode.decode_row_torch, nw_row.band_width_row)
+    return (("nw_diag", "tb_decode"), nw_diag.banded_nw_diag,
+            nw_diag.banded_nw_diag_torch, tb_decode.decode_diag,
+            tb_decode.decode_diag_torch, nw_diag.band_slots)
+
+
+def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str,
+                kernel: str = "diag") -> dict:
+    """The banded-NW kernel of ``kernel`` (B1 or B3) and its layout's
+    decoder (B2) against their plain versions on these inputs, exactly (NW:
+    scores and the whole tb; decode: packed paths and starts, on the
+    kernel's tb), with times (kernel: mean of 5 launches; plain: one call)
+    and bounds: for the NW 7 int32 operations per band cell (the same cells
+    for both kernels: they compute one function), q, t and the lengths read
+    once, scores and tb written once; for the decode 16 operations per step
+    of the walk, one tb byte read per step, the packed paths and starts
+    written once."""
     import numpy as np
-    from claragenomicsanalysis_tpu_torch.ops import nw_diag, tb_decode
-    ms_nw, (s_k, tb_k) = cuda_ms(
-        lambda: nw_diag.banded_nw_diag(q, qlen, t, tlen, r), 5)
+    (name_nw, name_tb), nw, nw_plain, dec, dec_plain, width = \
+        banded_kernels(kernel)
+    ms_nw, (s_k, tb_k) = cuda_ms(lambda: nw(q, qlen, t, tlen, r), 5)
     ms_nw_plain, (s_p, tb_p) = cuda_ms(
-        lambda: nw_diag.banded_nw_diag_torch(q, qlen, t, tlen, r), 1)
-    ms_tb, (pk_k, st_k) = cuda_ms(
-        lambda: tb_decode.decode_diag(tb_k, qlen, tlen, r), 5)
+        lambda: nw_plain(q, qlen, t, tlen, r), 1)
+    ms_tb, (pk_k, st_k) = cuda_ms(lambda: dec(tb_k, qlen, tlen, r), 5)
     ms_tb_plain, (pk_p, st_p) = cuda_ms(
-        lambda: tb_decode.decode_diag_torch(tb_k, qlen, tlen, r), 1)
+        lambda: dec_plain(tb_k, qlen, tlen, r), 1)
     err_nw = max(int((s_k.long() - s_p.long()).abs().max()),
                  int((tb_k.int() - tb_p.int()).abs().max()))
     err_tb = max(int((pk_k.long() - pk_p.long()).abs().max()),
                  int((st_k.long() - st_p.long()).abs().max()))
     B = q.shape[0]
     shape = (f"B={B} Lq={q.shape[1]} Lt={t.shape[1]} r={r} "
-             f"W={nw_diag.band_slots(r)} tb={tuple(tb_k.shape)}")
-    print(f"{tag} kernels ({shape}): nw_diag kernel {ms_nw:.3f} ms vs "
-          f"plain {ms_nw_plain:.1f} ms, scores+tb max diff {err_nw}; "
-          f"tb_decode kernel {ms_tb:.3f} ms vs plain {ms_tb_plain:.1f} ms, "
-          f"packed+start max diff {err_tb}")
+             f"W={width(r)} tb={tuple(tb_k.shape)}")
+    print(f"{tag} kernels ({shape}): {name_nw} kernel {ms_nw:.3f} ms vs "
+          f"plain {ms_nw_plain:.1f} ms (all {B} problems), scores+tb max "
+          f"diff {err_nw}; {name_tb} kernel {ms_tb:.3f} ms vs plain "
+          f"{ms_tb_plain:.1f} ms, packed+start max diff {err_tb}")
     check(err_nw == 0 and err_tb == 0,
           f"a banded kernel disagrees with its plain version ({tag}, "
           f"{shape})")
@@ -526,15 +641,14 @@ def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str) -> dict:
     steps = int((ql + tl).sum())
     b_tb = bound(OPS_PER_WALK_STEP * steps,
                  steps + 8 * B + 4 * pk_k.numel() + 4 * B, sm_mhz)
-    print(f"{tag} bounds: nw_diag {cells} band cells x {OPS_PER_BAND_CELL} "
-          f"ops, {io_bytes + tb_k.numel()} B -> {b_nw[0]:.4f} ms "
-          f"({b_nw[1]}); tb_decode {steps} steps x {OPS_PER_WALK_STEP} ops "
-          f"-> {b_tb[0]:.4f} ms ({b_tb[1]})")
-    return {"nw_diag": {"shape": shape, "ms": ms_nw, "plain_ms": ms_nw_plain,
-                        "bound": b_nw, "err": err_nw},
-            "tb_decode": {"shape": shape, "ms": ms_tb,
-                          "plain_ms": ms_tb_plain, "bound": b_tb,
-                          "err": err_tb}}
+    print(f"{tag} bounds: {name_nw} {cells} band cells x "
+          f"{OPS_PER_BAND_CELL} ops, {io_bytes + tb_k.numel()} B -> "
+          f"{b_nw[0]:.4f} ms ({b_nw[1]}); {name_tb} {steps} steps x "
+          f"{OPS_PER_WALK_STEP} ops -> {b_tb[0]:.4f} ms ({b_tb[1]})")
+    return {name_nw: {"shape": shape, "ms": ms_nw, "plain_ms": ms_nw_plain,
+                      "bound": b_nw, "err": err_nw},
+            name_tb: {"shape": shape, "ms": ms_tb, "plain_ms": ms_tb_plain,
+                      "bound": b_tb, "err": err_tb}}
 
 
 def myers_edge_pairs(rng):
@@ -659,12 +773,15 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
           f"{n_hirsch} Hirschberg, {n - n_hirsch} banded (padded Lq="
           f"{aligner.config.padded_query_length}); Hirschberg levels="
           f"{levels}; max_memory_allocated={peak} B")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the myers path never launched: {launches}")
+    check(all(launches[k] > 0 for k in ("nw_diag", "tb_decode", "myers"))
+          and launches["nw_row"] == launches["tb_decode_row"] == 0,
+          f"a kernel of the myers path never launched, or a row kernel "
+          f"did: {launches}")
     check(n_hirsch == n and launches["myers"] == 1 + levels,
           "at a padded query length over 2,048 every pair must go to "
           "Hirschberg, with one Myers launch per level after the score pass")
-    check(kt.count() == launches, f"timed launches {kt.count()}")
+    check(kt.count() == {k: v for k, v in launches.items() if v},
+          f"timed launches {kt.count()}")
     dev_ms = kt.ms()
     busy = sum(dev_ms.values())
     per_myers = [s.elapsed_time(e) for s, e in kt.events["myers"]]
@@ -706,7 +823,8 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
     per["myers"] = dict(calls[largest], err=max(c["err"]
                                                 for c in calls.values()))
     for k, n_launch in launches.items():
-        per[k].update(launches=n_launch, run_ms=dev_ms.get(k, 0.0))
+        per.setdefault(k, {}).update(launches=n_launch,
+                                     run_ms=dev_ms.get(k, 0.0))
 
     check_paths(results, pairs, "myers")
     dists = np.array([r.edit_distance for r in results])
@@ -736,7 +854,7 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
               f"{w:.3f} s, routed to Hirschberg {read_hirschberg()[0]}, "
               f"paths and distances equal myers': {same}")
         check(same, f"{algorithm} differs from myers on the subset")
-    return per
+    return per, results
 
 
 def phase_short_reads():
@@ -1494,6 +1612,97 @@ def phase_poa_window_refuses(tag: str, cfg: dict) -> None:
           f"nothing launched: {said}")
 
 
+def phase_row(pairs, ukk, myers_results, sm_mhz: float) -> dict:
+    """Phase 16: the row route, ``create_aligner(..., kernel="row")``, on
+    phase 5's pairs through ``ukkonen``: the same results pair for pair,
+    launches of B3 and B2's row decode only, its wall and kernel share
+    beside phase 5's, each kernel against its plain version at its largest
+    launch; then the other three algorithms through the row route on phase
+    7's subset, equal to the diag route's results there."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch import create_aligner
+    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    n = len(pairs)
+    aligner = create_aligner(max(len(a) for a, _ in pairs),
+                             max(len(b) for _, b in pairs), n,
+                             band_radius=64, device="cuda", kernel="row")
+    for a, b in pairs:
+        aligner.add_alignment(a, b)
+    settle_heap()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with kernel_times() as kt:
+        aligner.align_all()
+        results = aligner.get_alignments()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    plan = aligner._plan(np.array([len(a) for a, _ in pairs]),
+                         np.array([len(b) for _, b in pairs]))
+    bases = sum(len(a) + len(b) for a, b in pairs)
+    print(f"phase 16 row route (ukkonen, kernel=\"row\"): {n} alignments "
+          f"in {wall:.3f} s = {n / wall:.1f} alignments/s = "
+          f"{bases / wall / 1e6:.2f} Mbp/s end to end (phase 5, the diag "
+          f"route: {ukk['wall']:.3f} s = {n / ukk['wall']:.1f} alignments/s)"
+          f"; launches={launches} chunks={len(plan)} "
+          f"max_memory_allocated={peak} B")
+    check(launches == {"nw_diag": 0, "tb_decode": 0, "nw_row": len(plan),
+                       "tb_decode_row": len(plan), "myers": 0},
+          f"launches {launches} != one of B3 and B2-row per chunk "
+          f"({len(plan)} chunks) and none of the diag kernels")
+    check(kt.count() == {"nw_row": len(plan), "tb_decode_row": len(plan)},
+          f"timed launches {kt.count()}")
+    dev_ms = kt.ms()
+    busy = sum(dev_ms.values())
+    diag_ms = sum(v["run_ms"] for v in ukk["kernels"].values())
+    print(f"phase 16 breakdown (CUDA events inside the run): nw_row "
+          f"{dev_ms['nw_row']:.2f} ms + tb_decode_row "
+          f"{dev_ms['tb_decode_row']:.2f} ms = {busy:.2f} ms of "
+          f"{wall * 1e3:.1f} ms end to end (kernel share "
+          f"{busy / (wall * 1e3):.4f}; phase 5's kernels {diag_ms:.2f} ms, "
+          f"share {diag_ms / (ukk['wall'] * 1e3):.4f})")
+    same = [(r.status, r.edit_distance, r.path)
+            == (u.status, u.edit_distance, u.path)
+            for r, u in zip(results, ukk["results"])]
+    print(f"phase 16 checks: paths, distances and statuses equal phase 5's "
+          f"on {sum(same)} of {n} pairs")
+    check(all(same) and len(results) == n,
+          "the row route differs from the diag route (phase 5)")
+
+    # each kernel against its plain version at the largest launch
+    q, qlen, t, tlen, r = kt.largest["nw_row"]
+    per = time_banded(q, qlen, t, tlen, r, sm_mhz,
+                      "phase 16 largest launch:", "row")
+    kt.largest.clear()
+    for k, n_launch in launches.items():
+        per.setdefault(k, {}).update(launches=n_launch,
+                                     run_ms=dev_ms.get(k, 0.0))
+
+    sub = pairs[:N_SUBSET]
+    for algorithm in ("myers", "hirschberg-myers", "banded-escalate"):
+        zero_launches()
+        zero_hirschberg()
+        _, res, w = run_aligner(sub, algorithm, kernel="row")
+        ran = read_launches()
+        same = all((r.status, r.path, r.edit_distance)
+                   == (m.status, m.path, m.edit_distance)
+                   for r, m in zip(res, myers_results))
+        print(f"phase 16 {algorithm} (kernel=\"row\") on {len(sub)} of "
+              f"these pairs: {w:.3f} s, routed to Hirschberg "
+              f"{read_hirschberg()[0]}, launches={ran}; paths, distances and "
+              f"statuses equal the diag route's: {same}")
+        check(same, f"{algorithm}: the row route differs from the diag "
+              f"route on the subset")
+        check(ran["nw_row"] > 0 and ran["tb_decode_row"] > 0
+              and ran["nw_diag"] == ran["tb_decode"] == 0,
+              f"{algorithm}: the row route launched {ran}")
+    return per
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1504,9 +1713,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
 
     sm_mhz = phase_env()
-    errs = {}
-    errs["nw_diag"], errs["tb_decode"] = phase_kernels(
-        np.random.default_rng(SEED))
+    errs = phase_kernels(np.random.default_rng(SEED))
     phase_golden()
     t0 = time.perf_counter()
     pairs = main_path_pairs(N_PAIRS, SEED)
@@ -1516,8 +1723,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     ukk = phase_main(pairs, sm_mhz)
     errs["myers"] = phase_myers_edges(np.random.default_rng(SEED + 3))
-    paths = {"ukkonen": ukk["kernels"],
-             "myers": phase_myers_main(pairs, ukk, sm_mhz)}
+    paths = {"ukkonen": ukk["kernels"]}
+    paths["myers"], myers_results = phase_myers_main(pairs, ukk, sm_mhz)
     phase_short_reads()
     phase_cli_algorithms()
     errs |= dict.fromkeys(POA_KERNELS, phase_poa_kernels())
@@ -1534,6 +1741,8 @@ def main() -> int:
     paths["poa_window"] = phase_poa_window("phase 15 (correction shape)",
                                            corr, sm_mhz)
     phase_poa_window_refuses("phase 15 (deep shape)", POA_DEEP)
+    paths["ukkonen_row"] = phase_row(pairs, ukk, myers_results[:N_SUBSET],
+                                     sm_mhz)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "claragenomicsanalysis_tpu")
@@ -1541,12 +1750,16 @@ def main() -> int:
     check(not loaded, f"the port loaded the JAX package or jax: {loaded}")
 
     csrc = "claragenomicsanalysis_tpu_torch/csrc"
+    jax_ops = "claragenomicsanalysis_tpu/ops"
     v2 = "claragenomicsanalysis_tpu/ops/poa_pallas2.py"
     meta = {
         "nw_diag": ("claragenomicsanalysis_tpu_torch/csrc/nw_diag.cu",
                     "claragenomicsanalysis_tpu/ops/nw_diag_pallas.py:93"),
         "tb_decode": ("claragenomicsanalysis_tpu_torch/csrc/tb_decode.cu",
                       "claragenomicsanalysis_tpu/ops/tb_decode_pallas.py:33"),
+        "nw_row": (f"{csrc}/nw_row.cu", f"{jax_ops}/nw_band_pallas.py:73"),
+        "tb_decode_row": (f"{csrc}/tb_decode.cu",
+                          f"{jax_ops}/tb_decode_pallas.py:33"),
         "myers": ("claragenomicsanalysis_tpu_torch/csrc/myers.cu",
                   "claragenomicsanalysis_tpu/ops/myers_pallas.py:39"),
         "poa_nwtb": (f"{csrc}/poa_nwtb.cu", f"{v2}:193"),
@@ -1575,6 +1788,15 @@ def main() -> int:
                  "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
                  "bound_by": v["bound"][1]} if p in timed else {})
                 for p, v in runs.items()}})
+    # the time each kernel spends above its bound, summed over the main
+    # paths: launches in the path's run x (time - bound) at its largest
+    # launch; the order in which redesigning the kernels pays most
+    gap = {k["name"]: sum(v["launches"] * (v["ms"] - v["bound_ms"])
+                          for v in k["paths"].values() if "ms" in v)
+           for k in kernels}
+    print("time above the bound, launches x (ms - bound_ms) over the main "
+          "paths: " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+              gap.items(), key=lambda kv: -kv[1])))
     print(f"total: {time.perf_counter() - t_start:.1f} s of command time; "
           f"no module of claragenomicsanalysis_tpu and no jax loaded")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ single batched call, locate the column where an optimal path crosses that
 row; the two halves are the next level's fragments.  Fragments with a query
 side of at most ``BASE_Q`` are solved by banded NW at radius
 ``max(8, pow2(longest side))``, which holds every global path of the
-fragment.  The pieces, in query order, make each pair's path.
+fragment (by the banded-NW kernel the caller names, ``ops.banded.KERNELS``;
+both give the same paths).  The pieces, in query order, make each pair's
+path.
 
 The path is optimal and deterministic but not the dense canonical one: the
 split takes the smallest optimal column.  The split rule, the middle row,
@@ -69,11 +71,13 @@ def split_points(rows: torch.Tensor, tlen: torch.Tensor) -> torch.Tensor:
     return torch.where(total == best, jj, rows.shape[1]).min(1).values
 
 
-def hirschberg_align_batch(queries: list[str], targets: list[str],
-                           device) -> tuple[list[list[int]], np.ndarray]:
+def hirschberg_align_batch(queries: list[str], targets: list[str], device,
+                           kernel: str = "diag"
+                           ) -> tuple[list[list[int]], np.ndarray]:
     """-> (paths, dists): each pair's optimal edit path (AlignmentState
-    codes) and its cost, with the DP on ``device``."""
-    nw_fn, decode_fn = resolve(device)
+    codes) and its cost, with the DP on ``device`` and the base cases by
+    the banded-NW ``kernel``."""
+    nw_fn, decode_fn = resolve(device, kernel)
     dev = torch.device(device)
     P = len(queries)
     if P == 0:
@@ -93,7 +97,7 @@ def hirschberg_align_batch(queries: list[str], targets: list[str],
         if base.any():
             with trace_range("hirschberg.base"):
                 leaves += _solve_base(Q, T, *(a[base] for a in frag),
-                                      nw_fn, decode_fn)
+                                      nw_fn, decode_fn, kernel)
         frag = tuple(a[~base] for a in frag)
         if len(frag[0]):
             with trace_range("hirschberg.split"):
@@ -115,7 +119,7 @@ hirschberg_align_batch.pairs = 0
 hirschberg_align_batch.levels = 0
 
 
-def _solve_base(Q, T, pair, qlo, qhi, tlo, thi, nw_fn, decode_fn):
+def _solve_base(Q, T, pair, qlo, qhi, tlo, thi, nw_fn, decode_fn, kernel):
     """Banded NW of the base fragments, bucketed by radius and cut into
     launches by ops.banded.launch_chunks; -> one (pair, qlo, paths) triple
     per launch."""
@@ -125,7 +129,7 @@ def _solve_base(Q, T, pair, qlo, qhi, tlo, thi, nw_fn, decode_fn):
     for r in np.unique(radius).tolist():
         bucket = np.flatnonzero(radius == r)
         Lq, Lt = max(1, int(qs[bucket].max())), max(1, int(ts[bucket].max()))
-        for sel in launch_chunks(bucket, Lq, Lt, r):
+        for sel in launch_chunks(bucket, Lq, Lt, r, kernel):
             q = _cut(Q, pair[sel], qlo[sel], qs[sel], Lq, False)
             t = _cut(T, pair[sel], tlo[sel], ts[sel], Lt, False)
             ql, tl = (torch.from_numpy(a[sel].astype(np.int32)).to(Q.device)

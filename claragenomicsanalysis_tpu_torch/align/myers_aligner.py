@@ -5,7 +5,8 @@
 edit distance s; banded NW at radius r = max(8, pow2(s)) then re-derives the
 dense canonical path.  Any optimal path stays within |i - j| <= s, and on
 such a path the banded DP equals the dense one while values elsewhere only
-grow, so the banded traceback is the dense canonical path.
+grow, so the banded traceback is the dense canonical path.  ``kernel``
+names the banded-NW kernel (``ops.banded.KERNELS``); both give that path.
 
 ``banded_escalate_align_batch`` skips the O(Lq * Lt) scoring pass: it runs
 banded NW from radius pow2(max(|lq - lt|, (lq + lt) // 12, 8)) and doubles
@@ -45,14 +46,14 @@ def routes_to_hirschberg(Lq: int, r: int) -> bool:
     return Lq * round_up(2 * r + 1, 128) > TB_BYTES_PER_PROBLEM
 
 
-def _hirschberg_into(paths, dists, hirsch, queries, targets, device):
+def _hirschberg_into(paths, dists, hirsch, queries, targets, device, kernel):
     """Align the pairs ``hirsch`` with Hirschberg into ``paths`` and, unless
     it is None, ``dists``."""
     if hirsch:
         with trace_range("aligner.hirschberg"):
             h_paths, h_dists = hirschberg_align_batch(
                 [queries[b] for b in hirsch], [targets[b] for b in hirsch],
-                device)
+                device, kernel)
         for k, b in enumerate(hirsch):
             paths[b] = h_paths[k]
             if dists is not None:
@@ -61,12 +62,12 @@ def _hirschberg_into(paths, dists, hirsch, queries, targets, device):
 
 def myers_align_batch(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
                       tlen: np.ndarray, queries: list[str],
-                      targets: list[str], device
+                      targets: list[str], device, kernel: str = "diag"
                       ) -> tuple[list[list[int]], np.ndarray]:
     """-> (paths, dists) of the packed batch (``q (B, Lq)`` int8 codes with
     -1 PAD, int32 lengths); ``queries``/``targets`` are the pairs' strings,
     which the pairs routed to Hirschberg use."""
-    nw_fn, decode_fn = resolve(device)
+    nw_fn, decode_fn = resolve(device, kernel)
     dev = torch.device(device)
     B, Lq = q.shape
     Lt = t.shape[1]
@@ -89,7 +90,7 @@ def myers_align_batch(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
             buckets.setdefault(r, []).append(b)
 
     for r, idxs in sorted(buckets.items()):
-        for sel in launch_chunks(idxs, Lq, Lt, r):
+        for sel in launch_chunks(idxs, Lq, Lt, r, kernel):
             seld = torch.from_numpy(sel).to(dev)
             with trace_range("aligner.myers.banded"):
                 _, tb = nw_fn(qd[seld], qld[seld], td[seld], tld[seld], r)
@@ -97,17 +98,18 @@ def myers_align_batch(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
             for b, p in zip(sel, sub):
                 paths[b] = p
     # the distance stays the Myers score, which the path's cost equals
-    _hirschberg_into(paths, None, hirsch, queries, targets, device)
+    _hirschberg_into(paths, None, hirsch, queries, targets, device, kernel)
     return paths, dists
 
 
 def banded_escalate_align_batch(q: np.ndarray, qlen: np.ndarray,
                                 t: np.ndarray, tlen: np.ndarray,
                                 queries: list[str], targets: list[str],
-                                device) -> tuple[list[list[int]], np.ndarray]:
+                                device, kernel: str = "diag"
+                                ) -> tuple[list[list[int]], np.ndarray]:
     """Score-free variant of :func:`myers_align_batch`, same arguments and
     results (see the module docstring)."""
-    nw_fn, decode_fn = resolve(device)
+    nw_fn, decode_fn = resolve(device, kernel)
     dev = torch.device(device)
     B, Lq = q.shape
     Lt = t.shape[1]
@@ -136,7 +138,7 @@ def banded_escalate_align_batch(q: np.ndarray, qlen: np.ndarray,
             buckets.setdefault(r, []).append(b)
         r_of = {}
         for r, idxs in sorted(buckets.items()):
-            for sel in launch_chunks(idxs, Lq, Lt, r):
+            for sel in launch_chunks(idxs, Lq, Lt, r, kernel):
                 seld = torch.from_numpy(sel).to(dev)
                 with trace_range("aligner.banded_escalate.nw"):
                     sc, tb = nw_fn(qd[seld], qld[seld], td[seld], tld[seld],
@@ -154,5 +156,5 @@ def banded_escalate_align_batch(q: np.ndarray, qlen: np.ndarray,
                         hirsch.append(int(b))
                     else:
                         r_of[int(b)] = 2 * r
-    _hirschberg_into(paths, dists, hirsch, queries, targets, device)
+    _hirschberg_into(paths, dists, hirsch, queries, targets, device, kernel)
     return paths, dists

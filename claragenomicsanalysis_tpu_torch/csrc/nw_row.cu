@@ -1,0 +1,273 @@
+// Banded global edit distance (unit-cost Needleman-Wunsch) swept by query
+// row, with an in-row min-plus prefix scan and a 2-bit packed traceback.
+//
+// Replaces: claragenomicsanalysis_tpu/ops/nw_band_pallas.py::_kernel, the
+// TPU kernel behind banded_nw_pallas.  It computes the same function as
+// csrc/nw_diag.cu (B1) in the other traceback layout; the output arrays have
+// the JAX function's shapes and values on every row a problem reaches, so a
+// traceback written by either package decodes with either package's decoder.
+//
+// Layout.  Row i (1..Lq) keeps W = round_up(2r + 1, 8) lanes; lane k holds
+// cell (i, j = i + k - r), and the band |i - j| <= r is k <= 2r.  Row 0 is
+// D[0, j] = j.  For a cell of row i
+//     diag  D[i-1, j-1]  ->  row i - 1, lane k
+//     up    D[i-1, j  ]  ->  row i - 1, lane k + 1
+//     left  D[i,   j-1]  ->  row i,     lane k - 1
+// so a row depends on itself through `left`: with tmp = min(diag, up + 1)
+// (i at j = 0, INF outside the problem), D[i, k] = k + min_{l <= k}(tmp[l] -
+// l), a min-plus prefix over the lanes.  tb[(i - 1) / 4, b, k] holds the
+// codes of four rows, row i at bits 2 * ((i - 1) % 4), with the package's
+// tie-break: diagonal, then DELETION (left + 1), else INSERTION.  int32 with
+// INF = 2^30 and no saturation, as in the JAX kernel (fits16 = False).
+//
+// What bounds it on Hopper.  The work per cell is a handful of int32
+// operations and the traceback written is W bytes per four rows per problem,
+// far below the card's rates.  What bounds a problem is the chain: qlen
+// dependent rows, each a block-wide scan with two barriers, against B1's
+// qlen + tlen diagonals with one barrier each.  Half as many steps, but a
+// step costs a scan through shared memory and a second barrier.
+//
+// Design.  One thread block per problem, so every barrier is a
+// __syncthreads.  Each thread owns CPT contiguous lanes (CPT the least power
+// of two that covers W with at most 1,024 threads; W reaches 4,104 when
+// banded-escalate widens r on short reads).  A row is two passes over the
+// thread's lanes:
+//   1. from the previous row in shared memory, tmp and the thread's own
+//      minimum of tmp - k; an inclusive __shfl_up_sync scan over the warp's
+//      thread minima; each warp's total to shared memory; barrier;
+//   2. each warp's carry (a shuffle reduction over the totals of the warps
+//      before it); the thread recomputes tmp lane by lane from the carry
+//      and writes the row's values over the previous row in place (the one
+//      value of the previous row it would lose, its right neighbour's first
+//      lane, it read in pass 1); the codes of every lane but its first, whose
+//      left neighbour belongs to the thread before; barrier; the first
+//      lane's code.
+// The previous row lives in one shared int32 buffer of W + 1 (an INF
+// sentinel at W), the problem's query and target in shared memory.  Each
+// lane's four 2-bit codes are OR-accumulated in a register (four lanes a
+// word) and stored once every four rows.  A problem stops at its own last
+// packed row (round_up(qlen, 4)) and writes zeros to the rows it does not
+// reach; the plain PyTorch version in ops/nw_row.py defines the same output.
+// wgmma, TMA and several problems per block are later work.
+
+#include <climits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxThreads = 1024;
+
+__device__ __forceinline__ int warp_scan_min(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v = min(v, n);
+  }
+  return v;
+}
+
+__device__ __forceinline__ int warp_reduce_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// tmp of lane k of row i from the previous row's diag (`pd`) and up (`pu`)
+// values; also returns the cell's validity, substitution cost and diag sum.
+struct Cell {
+  int tmp, diag, sub;
+  bool valid;
+};
+
+__device__ __forceinline__ Cell cell(int i, int k, int pd, int pu, int qc,
+                                     const int8_t* ts, int Lt, int r,
+                                     int qlen, int tlen) {
+  const int j = i + k - r;
+  Cell c;
+  c.valid = j >= 0 && j <= tlen && i <= qlen && k <= 2 * r;
+  // an unknown base (N, code -1) never matches, not even another N
+  const int tc = (j >= 1 && j <= Lt) ? ts[j - 1] : -1;
+  c.sub = (qc == tc && qc >= 0) ? 0 : 1;
+  c.diag = pd + c.sub;
+  int tmp = min(c.diag, pu + 1);
+  if (j == 0) tmp = i;  // column 0
+  c.tmp = c.valid ? tmp : cga::kInf;
+  return c;
+}
+
+__device__ __forceinline__ int move_code(int cur, int diag, int sub,
+                                         int left) {
+  return (cur == diag) ? sub
+                       : (cur == left + 1 ? cga::kDeletion : cga::kInsertion);
+}
+
+template <int CPT>
+__global__ void nw_row_kernel(const int8_t* __restrict__ q,
+                              const int32_t* __restrict__ qlens,
+                              const int8_t* __restrict__ t,
+                              const int32_t* __restrict__ tlens,
+                              int32_t* __restrict__ scores,
+                              uint8_t* __restrict__ tb, int B, int Lq, int Lt,
+                              int r, int W, int R4) {
+  constexpr int kWords = (CPT + 3) / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* row = reinterpret_cast<int32_t*>(smem);  // W lanes + INF at W
+  int32_t* wtot = row + W + 1;                        // a total per warp
+  int8_t* qs = reinterpret_cast<int8_t*>(wtot + 32);
+  int8_t* ts = qs + Lq;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int qlen = qlens[b];
+  const int tlen = tlens[b];
+  const int k0 = tid * CPT;
+
+  for (int p = tid; p < Lq; p += nt) qs[p] = q[(size_t)b * Lq + p];
+  for (int p = tid; p < Lt; p += nt) ts[p] = t[(size_t)b * Lt + p];
+  for (int k = tid; k <= W; k += nt) {
+    const int j = k - r;  // row 0: D[0, j] = j inside the band
+    row[k] = (k < W && j >= 0 && j <= tlen && k <= 2 * r) ? j : cga::kInf;
+  }
+  const int dl = qlen > tlen ? qlen - tlen : tlen - qlen;
+  const bool band_ok = dl <= r;
+  const int kf = r + tlen - qlen;  // the lane of (qlen, tlen)
+  // row 0 holds the score when qlen == 0; otherwise row qlen overwrites it
+  if (tid == 0) scores[b] = band_ok ? (qlen == 0 ? tlen : 0) : cga::kInf;
+  const int rows_end = (qlen + 3) & ~3;  // <= 4 * R4
+  uint32_t acc[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) acc[w] = 0;
+  __syncthreads();
+
+  for (int i = 1; i <= rows_end; ++i) {
+    const int qc = (i <= Lq) ? qs[i - 1] : -1;
+    const int shift = 2 * ((i - 1) & 3);
+
+    // pass 1: the thread's minimum of tmp - k over its lanes
+    int mine = INT_MAX;
+    int pd = (k0 < W) ? row[k0] : cga::kInf;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int k = k0 + c;
+      if (k < W) {
+        const int pu = row[k + 1];
+        mine = min(mine, cell(i, k, pd, pu, qc, ts, Lt, r, qlen, tlen).tmp - k);
+        pd = pu;
+      }
+    }
+    const int pu_last = pd;  // the right neighbour's first previous value
+    const int incl = warp_scan_min(mine, lane);
+    int excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = INT_MAX;
+    if (lane == 31) wtot[wid] = incl;
+    __syncthreads();
+
+    // pass 2: the carry from the warps before, then the row in place
+    const int carry = warp_reduce_min(lane < wid ? wtot[lane] : INT_MAX);
+    int run = min(carry, excl);
+    int left = cga::kInf, cur0 = cga::kInf, diag0 = 0, sub0 = 0;
+    pd = (k0 < W) ? row[k0] : cga::kInf;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const int k = k0 + c;
+      if (k < W) {
+        const int pu = (c + 1 < CPT) ? row[k + 1] : pu_last;
+        const Cell x = cell(i, k, pd, pu, qc, ts, Lt, r, qlen, tlen);
+        run = min(run, x.tmp - k);
+        const int cur = x.valid ? run + k : cga::kInf;
+        if (c == 0) {
+          cur0 = cur;
+          diag0 = x.diag;
+          sub0 = x.sub;
+        } else {
+          acc[c >> 2] |= (uint32_t)move_code(cur, x.diag, x.sub, left)
+                         << (8 * (c & 3) + shift);
+        }
+        if (i == qlen && k == kf && band_ok) scores[b] = cur;
+        row[k] = cur;
+        left = cur;
+        pd = pu;
+      }
+    }
+    __syncthreads();
+
+    if (k0 < W) {
+      const int left0 = (k0 > 0) ? row[k0 - 1] : cga::kInf;
+      acc[0] |= (uint32_t)move_code(cur0, diag0, sub0, left0) << shift;
+    }
+    if (shift == 6) {
+      uint8_t* out = tb + ((size_t)((i - 1) >> 2) * B + b) * W;
+      if constexpr (CPT >= 4) {  // k0 and W are multiples of 4: whole words
+#pragma unroll
+        for (int w = 0; w < kWords; ++w)
+          if (k0 + 4 * w < W)
+            reinterpret_cast<uint32_t*>(out + k0)[w] = acc[w];
+      } else {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c)
+          if (k0 + c < W) out[k0 + c] = (uint8_t)(acc[0] >> (8 * c));
+      }
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) acc[w] = 0;
+    }
+  }
+
+  for (int rr = rows_end >> 2; rr < R4; ++rr)
+    for (int k = tid; k < W; k += nt) tb[((size_t)rr * B + b) * W + k] = 0;
+}
+
+template <int CPT>
+int launch(const void* q, const void* qlen, const void* t, const void* tlen,
+           void* scores, void* tb, int B, int Lq, int Lt, int r, int W,
+           int R4, cudaStream_t stream) {
+  const int warps = ((W + CPT - 1) / CPT + 31) / 32;
+  const int threads = 32 * warps;
+  // the row (W + 1 int32), the warp totals, then q and t; above 227 KB the
+  // attribute call fails and the error is returned
+  const long long smem = 4LL * (W + 1) + 4 * 32 + Lq + Lt;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nw_row_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  nw_row_kernel<CPT><<<B, threads, (size_t)smem, stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int32_t*>(qlen),
+      static_cast<const int8_t*>(t), static_cast<const int32_t*>(tlen),
+      static_cast<int32_t*>(scores), static_cast<uint8_t*>(tb), B, Lq, Lt, r,
+      W, R4);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` and returns cudaGetLastError() as an int
+// (0 is success).  q (B, Lq) and t (B, Lt) are int8 codes with -1 PAD,
+// qlen and tlen (B,) int32, scores (B,) int32, tb (R4, B, W) int8 with
+// R4 = round_up(Lq, 16) / 4 and W = round_up(2r + 1, 8).
+extern "C" int cga_nw_row(const void* q, const void* qlen, const void* t,
+                          const void* tlen, void* scores, void* tb, int B,
+                          int Lq, int Lt, int r, int W, int R4,
+                          void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (W <= 1 * kMaxThreads)
+    return launch<1>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
+  if (W <= 2 * kMaxThreads)
+    return launch<2>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
+  if (W <= 4 * kMaxThreads)
+    return launch<4>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
+  if (W <= 8 * kMaxThreads)
+    return launch<8>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
+  if (W <= 16 * kMaxThreads)
+    return launch<16>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
+  if (W <= 32 * kMaxThreads)
+    return launch<32>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
+  if (W <= 64 * kMaxThreads)
+    return launch<64>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
+  return (int)cudaErrorInvalidValue;  // a band no block can hold
+}

@@ -6,7 +6,10 @@
 CIGAR, pretty view and a per-problem ``StatusType``, exactly as in the JAX
 package.  The DP runs on an explicit ``torch.device``: on ``cuda`` through
 the hand-written kernels of ops/, on ``cpu`` through their plain PyTorch
-versions.  Algorithms:
+versions.  ``kernel`` names the banded-NW kernel every algorithm's banded
+launches use (ops/banded.py): ``"diag"`` (the default, B1) or ``"row"``
+(B3, the JAX package's ``backend="pallas-row"``); both give the same paths,
+distances and statuses.  Algorithms:
 
 - ``ukkonen`` (default): banded NW with the adaptive band;
 - ``myers``: Myers bit-vector scores, then a banded re-run for the canonical
@@ -77,13 +80,15 @@ class Aligner:
     """Batched global aligner on one ``torch.device``."""
 
     def __init__(self, config: AlignerConfig, algorithm: str = "ukkonen",
-                 device="cuda"):
+                 device="cuda", kernel: str = "diag"):
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}")
         self.config = config
         self.algorithm = algorithm
+        self.kernel = kernel
         self.device = torch.device(device)
-        self._nw, self._decode = resolve(self.device)
+        # raises for a kernel not in ops.banded.KERNELS
+        self._nw, self._decode = resolve(self.device, kernel)
         self._queries: list[str] = []
         self._targets: list[str] = []
         self._results: list[Alignment] | None = None
@@ -139,7 +144,8 @@ class Aligner:
             buckets.setdefault(bucket_radius(cfg.band_radius, dl), []).append(b)
         return [(r, sel) for r, idxs in sorted(buckets.items())
                 for sel in launch_chunks(idxs, cfg.padded_query_length,
-                                         cfg.padded_target_length, r)]
+                                         cfg.padded_target_length, r,
+                                         self.kernel)]
 
     def _run_batch(self) -> list[Alignment]:
         if not self._queries:
@@ -147,18 +153,20 @@ class Aligner:
         cfg = self.config
         with trace_range("aligner.pack"):
             q, qlen, t, tlen = self._pack()
-        dev = self.device
+        dev, kernel = self.device, self.kernel
         with trace_range(f"aligner.{self.algorithm}"):
             if self.algorithm == "hirschberg-myers":
                 # the unpadded strings, as the JAX package passes them
-                paths, dists = hirschberg_align_batch(self._queries,
-                                                      self._targets, dev)
+                paths, dists = hirschberg_align_batch(
+                    self._queries, self._targets, dev, kernel)
             elif self.algorithm == "myers":
                 paths, dists = myers_align_batch(
-                    q, qlen, t, tlen, self._queries, self._targets, dev)
+                    q, qlen, t, tlen, self._queries, self._targets, dev,
+                    kernel)
             elif self.algorithm == "banded-escalate":
                 paths, dists = banded_escalate_align_batch(
-                    q, qlen, t, tlen, self._queries, self._targets, dev)
+                    q, qlen, t, tlen, self._queries, self._targets, dev,
+                    kernel)
             else:
                 paths, dists = self._run_ukkonen(q, qlen, t, tlen)
 
@@ -199,14 +207,15 @@ def create_aligner(max_query_length: int, max_target_length: int,
                    max_alignments: int,
                    alignment_type: AlignmentType = AlignmentType.GLOBAL_ALIGNMENT,
                    band_radius: int = 64, algorithm: str = "ukkonen",
-                   device="cuda") -> Aligner:
+                   device="cuda", kernel: str = "diag") -> Aligner:
     """Factory mirroring the reference's create_aligner [U].  ``device`` is
     where the DP runs; asking for ``cuda`` where torch finds no card
-    raises."""
+    raises.  ``kernel`` is the banded-NW kernel, one of
+    ``ops.banded.KERNELS``; any other string raises ValueError."""
     if alignment_type != AlignmentType.GLOBAL_ALIGNMENT:
         raise ValueError("only global alignment is supported")
     cfg = AlignerConfig(max_query_length=max_query_length,
                         max_target_length=max_target_length,
                         max_alignments=max_alignments,
                         band_radius=band_radius)
-    return Aligner(cfg, algorithm=algorithm, device=device)
+    return Aligner(cfg, algorithm=algorithm, device=device, kernel=kernel)

@@ -1,2 +1,3 @@
-"""Device ops of the port: the banded-NW kernel and its traceback decoder,
-each beside its plain PyTorch version, and the kernel build."""
+"""Device ops of the port: each hand-written kernel's wrapper beside its plain
+PyTorch version (the two banded-NW kernels and their traceback decoders,
+Myers, the POA kernels), the banded-NW dispatch and the kernel build."""

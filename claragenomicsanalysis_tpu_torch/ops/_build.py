@@ -33,6 +33,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "cga_nw_diag": (_PTR,) * 6 + (_INT,) * 6 + (_PTR,),
     "cga_tb_decode_diag": (_PTR,) * 5 + (_INT,) * 5 + (_PTR,),
+    "cga_nw_row": (_PTR,) * 6 + (_INT,) * 6 + (_PTR,),
+    "cga_tb_decode_row": (_PTR,) * 5 + (_INT,) * 5 + (_PTR,),
     "cga_myers": (_PTR,) * 6 + (_INT,) * 4 + (_PTR,),
     "cga_poa_topsort": (_PTR,) * 8 + (_INT,) * 3 + (_PTR,),
     "cga_poa_nwtb": (_PTR,) * 15 + (_INT,) * 8 + (_PTR,),

@@ -1,28 +1,52 @@
 """Banded-NW dispatch (counterpart of claragenomicsanalysis_tpu/ops/
 banded.py): the one seam through which the aligner reaches its DP.
 
-The port has one kernel kind, the anti-diagonal sweep of ops/nw_diag.py, at
-every band radius.  The JAX package also routes to a row-sweep kernel and to
-an XLA scan for radii below 4 and for buckets whose blocks overflow the TPU's
-scoped VMEM, and must then tell the two traceback layouts apart when it
-decodes.  A Hopper thread block has no such limit at these shapes, so the
-port keeps a single layout and no fallback.
+Two kernels compute the same banded NW, with the same scores and the same
+canonical paths, in two traceback layouts (``KERNELS``):
+
+- ``"diag"`` (ops/nw_diag.py, B1): the anti-diagonal sweep, the default;
+- ``"row"`` (ops/nw_row.py, B3): the query-row sweep with an in-row min-plus
+  prefix scan, the counterpart of the JAX ``backend="pallas-row"``.
+
+The caller names the kernel (``create_aligner(..., kernel=)``), and each
+kernel's traceback goes to its own layout's decoder: the layout is never
+guessed from the array's shape.  The JAX package also falls back from one
+kernel to the other, or to an XLA scan, for radii below 4 and for buckets
+whose blocks overflow the TPU's scoped VMEM; a Hopper block has no such
+limit at these shapes, so the port has no fallback.
 
 Every banded launch of the port, whichever algorithm makes it, is sized by
-:func:`launch_chunks` from that layout's traceback bytes.
+:func:`launch_chunks` from the chosen kernel's traceback bytes.
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from .nw_diag import band_slots, banded_nw_diag, padded_diagonals
+from .nw_row import band_width_row, banded_nw_row, tb_rows
 from .tb_decode import traceback_paths_device
 
+#: the banded-NW kernels, by the name a caller gives
+KERNELS = ("diag", "row")
 
-def tb_bytes_per_problem(Lq: int, Lt: int, r: int) -> int:
+
+def _check_kernel(kernel: str) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown banded-NW kernel {kernel!r}; "
+                         f"one of {KERNELS}")
+
+
+def tb_bytes_per_problem(Lq: int, Lt: int, r: int,
+                         kernel: str = "diag") -> int:
     """Packed traceback bytes one problem of a (Lq, Lt) batch adds to a
-    launch at radius r (the diag layout, ``tb (Dpad / 4, B, W)``).  It sizes
-    chunks only and never changes a result."""
+    launch of ``kernel`` at radius r: ``Dpad / 4 * round_up(r + 1, 8)`` for
+    the diag layout, ``round_up(Lq, 16) / 4 * round_up(2r + 1, 8)`` for the
+    row layout.  It sizes chunks only and never changes a result."""
+    _check_kernel(kernel)
+    if kernel == "row":
+        return tb_rows(Lq) * band_width_row(r)
     return padded_diagonals(Lq, Lt) // 4 * band_slots(r)
 
 
@@ -30,22 +54,26 @@ def tb_bytes_per_problem(Lq: int, Lt: int, r: int) -> int:
 MEM_BUDGET_PER_DISPATCH = 1 << 28
 
 
-def launch_chunks(idxs, Lq: int, Lt: int, r: int) -> list[np.ndarray]:
+def launch_chunks(idxs, Lq: int, Lt: int, r: int,
+                  kernel: str = "diag") -> list[np.ndarray]:
     """``idxs`` (problems of a (Lq, Lt) batch, all at radius r) cut into
-    the problems of successive launches, each launch's tracebacks within
-    MEM_BUDGET_PER_DISPATCH."""
-    n = max(1, MEM_BUDGET_PER_DISPATCH // tb_bytes_per_problem(Lq, Lt, r))
+    the problems of successive launches of ``kernel``, each launch's
+    tracebacks within MEM_BUDGET_PER_DISPATCH."""
+    per = tb_bytes_per_problem(Lq, Lt, r, kernel)
+    n = max(1, MEM_BUDGET_PER_DISPATCH // max(1, per))
     idxs = np.asarray(idxs)
     return [idxs[s: s + n] for s in range(0, len(idxs), n)]
 
 
-def resolve(device) -> tuple:
-    """-> (nw_fn, decode_fn) for ``device``.
+def resolve(device, kernel: str = "diag") -> tuple:
+    """-> (nw_fn, decode_fn) of ``kernel`` for ``device``.
 
     nw_fn(q, qlen, t, tlen, r) returns (scores, tb) on the inputs' device;
     decode_fn(tb, qlen, tlen, r) returns the edit paths as code lists.  Both
     launch their kernels for CUDA tensors and run their plain versions for
-    CPU tensors; raises when ``device`` is CUDA and no card is present."""
+    CPU tensors.  Raises ValueError for a kernel not in KERNELS and
+    RuntimeError when ``device`` is CUDA and no card is present."""
+    _check_kernel(kernel)
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -53,4 +81,5 @@ def resolve(device) -> tuple:
                                "CUDA device")
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
-    return banded_nw_diag, traceback_paths_device
+    nw_fn = banded_nw_row if kernel == "row" else banded_nw_diag
+    return nw_fn, functools.partial(traceback_paths_device, kernel=kernel)

@@ -2,10 +2,12 @@
 traceback, and the POA graph state.
 
 The JAX package's arrays (``claragenomicsanalysis_tpu``) are ``q``/``t``
-(B, L) int8 codes with -1 PAD, ``qlen``/``tlen`` (B,) int32 and the
-anti-diagonal traceback ``tb`` (Dpad / 4, B, W) int8.  The port keeps the same
-layouts as torch tensors, so conversion is a copy and a dtype check, never a
-reshuffle.
+(B, L) int8 codes with -1 PAD, ``qlen``/``tlen`` (B,) int32 and a packed
+traceback ``tb`` (rows, B, W) int8: the anti-diagonal one, (Dpad / 4, B,
+round_up(r + 1, 8)), or the row one, (round_up(Lq, 16) / 4, B,
+round_up(2r + 1, 8)).  Both have the batch on axis 1, so one check carries
+either.  The port keeps the same layouts as torch tensors, so conversion is
+a copy and a dtype check, never a reshuffle.
 """
 
 import numpy as np

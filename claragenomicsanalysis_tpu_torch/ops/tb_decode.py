@@ -1,22 +1,28 @@
-"""Decode anti-diagonal tracebacks on the device (counterpart of
-``claragenomicsanalysis_tpu/ops/tb_decode_pallas.py`` with ``diag=True``).
+"""Decode banded-NW tracebacks on the device (counterpart of
+``claragenomicsanalysis_tpu/ops/tb_decode_pallas.py``), in either layout:
+``diag`` (``diag=True`` there) for the ``tb (Dpad / 4, B, W)`` array of
+:func:`ops.nw_diag.banded_nw_diag`, ``row`` (``diag=False``) for the
+``tb (round_up(Lq, 16) / 4, B, round_up(2r + 1, 8))`` array of
+:func:`ops.nw_row.banded_nw_row`.
 
-Each problem's walk starts at (qlen, tlen) and follows the 2-bit codes of the
-``tb (Dpad / 4, B, W)`` array that :func:`ops.nw_diag.banded_nw_diag` wrote,
-back to (0, 0).  The path leaves the device packed: ``packed (B, TL / 16)``
-int32 holds 16 codes per word, written backwards from slot TL, and
-``start (B,)`` int32 is the slot of the first move, with
-``TL = round_up(Dpad + 8, 2048)`` — the JAX function's arrays, value for
-value.  Lane and row are clipped to the array, so a problem with an INF score
-walks bounded garbage; callers drop it by status.
+Each problem's walk starts at (qlen, tlen) and follows the 2-bit codes back
+to (0, 0).  The path leaves the device packed: ``packed (B, TL / 16)`` int32
+holds 16 codes per word, written backwards from slot TL, and ``start (B,)``
+int32 is the slot of the first move, with ``TL = round_up(Dpad + 8, 2048)``
+(diag) or ``round_up(2 * 4 * R4 + 2r + 8, 2048)`` (row, R4 packed rows) —
+the JAX function's arrays, value for value.  Lane and row are clipped to the
+array, so a problem with an INF score walks bounded garbage; callers drop it
+by status.
 
-- :func:`decode_diag` launches ``csrc/tb_decode.cu`` for CUDA tensors,
-  counts the launch in ``decode_diag.launches`` and times it inside a
-  ``utils.profiling.kernel_times()`` block; for CPU tensors it runs the
-  plain version.
-- :func:`decode_diag_torch` is the plain PyTorch version: the batch walks in
-  lockstep, one tensor step per move.
-- :func:`traceback_paths_device` returns the paths as code lists.
+- :func:`decode_diag` and :func:`decode_row` launch their kernels in
+  ``csrc/tb_decode.cu`` for CUDA tensors, count the launches in
+  ``decode_diag.launches`` / ``decode_row.launches`` and time them inside a
+  ``utils.profiling.kernel_times()`` block; for CPU tensors they run their
+  plain versions.
+- :func:`decode_diag_torch` and :func:`decode_row_torch` are the plain
+  PyTorch versions: the batch walks in lockstep, one tensor step per move.
+- :func:`traceback_paths_device` returns the paths as code lists, from the
+  layout its caller names.
 """
 
 import numpy as np
@@ -34,9 +40,15 @@ def path_slots(tb_rows: int) -> int:
     return round_up(4 * tb_rows + 8, 2048)
 
 
+def path_slots_row(tb_rows: int, band_radius: int) -> int:
+    """TL of the row layout: a global path inside the band has at most
+    qlen + tlen <= 2 * Lq + r moves, Lq = 4 * tb_rows."""
+    return round_up(2 * 4 * tb_rows + 2 * band_radius + 8, 2048)
+
+
 def _check(tb, qlen, tlen):
     if tb.dim() != 3 or tb.dtype != torch.int8:
-        raise ValueError("tb must be a (Dpad / 4, B, W) int8 tensor")
+        raise ValueError("tb must be a (rows, B, W) int8 tensor")
     B = tb.shape[1]
     if qlen.shape != (B,) or tlen.shape != (B,) \
             or qlen.dtype != torch.int32 or tlen.dtype != torch.int32:
@@ -45,14 +57,24 @@ def _check(tb, qlen, tlen):
         raise ValueError("tb, qlen and tlen must be on one device")
 
 
-def decode_diag_torch(tb: torch.Tensor, qlen: torch.Tensor,
-                      tlen: torch.Tensor,
-                      band_radius: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`decode_diag`."""
+def _cell_diag(i, j, r):
+    """(packed row, lane, bit shift) of cell (i, j) in the diag layout."""
+    d = i + j
+    return d >> 2, (r + j - i - ((d + r) & 1)) >> 1, 2 * (d & 3)
+
+
+def _cell_row(i, j, r):
+    """(packed row, lane, bit shift) of cell (i, j), i >= 1, in the row
+    layout."""
+    return (i - 1) >> 2, r + j - i, 2 * ((i - 1) & 3)
+
+
+def _walk_torch(tb, qlen, tlen, band_radius, TL, cell):
+    """The lockstep walk of both plain versions: every problem steps from
+    (qlen, tlen) toward (0, 0), one tensor step per move, reading the code
+    of ``cell(i, j, r)`` with row and lane clipped to the array."""
     _check(tb, qlen, tlen)
     R4, B, W = tb.shape
-    TL = path_slots(R4)
-    r = band_radius
     dev = tb.device
     tbu = tb.view(torch.uint8)
     b = torch.arange(B, device=dev)
@@ -61,16 +83,18 @@ def decode_diag_torch(tb: torch.Tensor, qlen: torch.Tensor,
     k = torch.full((B,), TL, dtype=torch.int64, device=dev)
     # int64 words; folded to int32 bit patterns at the end
     packed = torch.zeros((B, TL // 16), dtype=torch.int64, device=dev)
+    deletion = torch.full((B,), int(AlignmentState.DELETION),
+                          dtype=torch.int64, device=dev)
     while True:
         active = ((i > 0) | (j > 0)) & (k > 0)
         if not bool(active.any()):
             break
-        d = i + j
-        par = (d + r) & 1
-        lane = ((r + j - i - par) >> 1).clamp(0, W - 1)
-        row = (d >> 2).clamp(0, R4 - 1)
-        code = (tbu[row, b, lane].long() >> (2 * (d & 3))) & 3
-        code = torch.where(i == 0, int(AlignmentState.DELETION), code)
+        code = deletion        # row 0: the rest are deletions
+        if R4:                 # R4 == 0 only when every qlen is 0
+            row, lane, shift = cell(i, j, band_radius)
+            byte = tbu[row.clamp(0, R4 - 1), b, lane.clamp(0, W - 1)]
+            code = torch.where(i == 0, deletion,
+                               (byte.long() >> shift) & 3)
         k = torch.where(active, k - 1, k)
         ba, ka = b[active], k[active]
         packed[ba, ka >> 4] |= code[active] << (2 * (ka & 15))
@@ -80,38 +104,84 @@ def decode_diag_torch(tb: torch.Tensor, qlen: torch.Tensor,
     return packed.to(torch.int32), k.to(torch.int32)
 
 
-def decode_diag(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
-                band_radius: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Walk every problem's traceback on the tensors' device.
-
-    Returns ``packed (B, TL / 16)`` int32 and ``start (B,)`` int32 (see the
-    module docstring).
-    """
-    if tb.device.type == "cpu":
-        return decode_diag_torch(tb, qlen, tlen, band_radius)
+def _launch(name, launcher, tb, qlen, tlen, band_radius, TL):
+    """Launch the library's ``launcher`` on CUDA tensors, timed as kernel
+    ``name``, unless the batch is empty -> (packed, start)."""
     _check(tb, qlen, tlen)
     if tb.device.type != "cuda":
         raise ValueError(f"no kernel for device {tb.device}")
     tb, qlen, tlen = (x.contiguous() for x in (tb, qlen, tlen))
     R4, B, W = tb.shape
-    TL = path_slots(R4)
     packed = torch.zeros((B, TL // 16), dtype=torch.int32, device=tb.device)
     start = torch.empty(B, dtype=torch.int32, device=tb.device)
     if B == 0:
         return packed, start
     lib = _build.load()
     with torch.cuda.device(tb.device), kernel_span(
-            "tb_decode", (tb, qlen, tlen, band_radius), B * TL):
-        err = lib.cga_tb_decode_diag(
+            name, (tb, qlen, tlen, band_radius), B * TL):
+        err = getattr(lib, launcher)(
             tb.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             packed.data_ptr(), start.data_ptr(), B, R4, W, band_radius, TL,
             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "tb_decode")
-    decode_diag.launches += 1
+    _build.check(lib, err, name)
     return packed, start
 
 
+def decode_diag_torch(tb: torch.Tensor, qlen: torch.Tensor,
+                      tlen: torch.Tensor,
+                      band_radius: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`decode_diag`."""
+    return _walk_torch(tb, qlen, tlen, band_radius, path_slots(tb.shape[0]),
+                       _cell_diag)
+
+
+def decode_diag(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
+                band_radius: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Walk every problem's anti-diagonal traceback on the tensors' device.
+
+    Returns ``packed (B, TL / 16)`` int32 and ``start (B,)`` int32 (see the
+    module docstring).
+    """
+    if tb.device.type == "cpu":
+        return decode_diag_torch(tb, qlen, tlen, band_radius)
+    out = _launch("tb_decode", "cga_tb_decode_diag", tb, qlen, tlen,
+                  band_radius, path_slots(tb.shape[0]))
+    if tb.shape[1]:             # an empty batch launches nothing
+        decode_diag.launches += 1
+    return out
+
+
 decode_diag.launches = 0
+
+
+def decode_row_torch(tb: torch.Tensor, qlen: torch.Tensor,
+                     tlen: torch.Tensor,
+                     band_radius: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`decode_row`."""
+    return _walk_torch(tb, qlen, tlen, band_radius,
+                       path_slots_row(tb.shape[0], band_radius), _cell_row)
+
+
+def decode_row(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
+               band_radius: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Walk every problem's row-layout traceback on the tensors' device.
+
+    Returns ``packed (B, TL / 16)`` int32 and ``start (B,)`` int32 (see the
+    module docstring).
+    """
+    if tb.device.type == "cpu":
+        return decode_row_torch(tb, qlen, tlen, band_radius)
+    out = _launch("tb_decode_row", "cga_tb_decode_row", tb, qlen, tlen,
+                  band_radius, path_slots_row(tb.shape[0], band_radius))
+    if tb.shape[1]:             # an empty batch launches nothing
+        decode_row.launches += 1
+    return out
+
+
+decode_row.launches = 0
+
+#: the device decoder of each traceback layout
+DECODERS = {"diag": decode_diag, "row": decode_row}
 
 
 def unpack_paths(packed: np.ndarray, start: np.ndarray) -> list[list[int]]:
@@ -125,13 +195,16 @@ def unpack_paths(packed: np.ndarray, start: np.ndarray) -> list[list[int]]:
 
 
 def traceback_paths_device(tb: torch.Tensor, qlen: torch.Tensor,
-                           tlen: torch.Tensor,
-                           band_radius: int) -> list[list[int]]:
-    """Decode on the device; only the packed path words are copied to the
-    host, from the word of the earliest start on (the words before it are
-    zero in every row).  Returns forward AlignmentState code lists, one per
-    problem."""
-    packed, start = decode_diag(tb, qlen, tlen, band_radius)
+                           tlen: torch.Tensor, band_radius: int,
+                           kernel: str = "diag") -> list[list[int]]:
+    """Decode a traceback of the layout ``kernel`` ("diag" or "row", the
+    kernel that wrote it) on the device; only the packed path words are
+    copied to the host, from the word of the earliest start on (the words
+    before it are zero in every row).  Returns forward AlignmentState code
+    lists, one per problem."""
+    if kernel not in DECODERS:
+        raise ValueError(f"unknown traceback layout {kernel!r}")
+    packed, start = DECODERS[kernel](tb, qlen, tlen, band_radius)
     start = start.cpu().numpy()
     first = int(start.min()) // 16 if len(start) else 0
     return unpack_paths(packed[:, first:].cpu().numpy(), start - 16 * first)

@@ -165,7 +165,8 @@ def test_cli_align_golden_on_cpu():
 
 
 #: imports every module of the port, runs its CPU path through all four
-#: algorithms and POA consensus, and fails if any module of the JAX package or jax got loaded
+#: algorithms (banded-escalate through both banded-NW kernels) and POA
+#: consensus, and fails if any module of the JAX package or jax got loaded
 NO_JAX_PROBE = """
 import contextlib, io, pkgutil, sys, importlib
 import claragenomicsanalysis_tpu_torch as port
@@ -188,9 +189,11 @@ b = create_batch(max_poas=1, device="cpu", kernel="window", output_mask=3)
 b.add_poa_group(["ACGT", "AGT"])
 assert b.get_msa()[0] == [["ACGT", "A-GT"]]
 assert "digraph" in b.get_graphs()[0].serialize_to_dot()
-al = create_aligner(300, 300, 2, algorithm="banded-escalate", device="cpu")
-al.add_alignment("ACGT" * 50, "ACGT" * 48)
-assert al.get_alignments()[0].edit_distance == 8
+for kernel in ("diag", "row"):
+    al = create_aligner(300, 300, 2, algorithm="banded-escalate",
+                        device="cpu", kernel=kernel)
+    al.add_alignment("ACGT" * 50, "ACGT" * 48)
+    assert al.get_alignments()[0].edit_distance == 8
 bad = sorted(n for n in sys.modules
              if n in ("jax", "claragenomicsanalysis_tpu")
              or n.startswith(("jax.", "claragenomicsanalysis_tpu.")))
