@@ -21,8 +21,12 @@ Phases, one line or more each:
      its checks, launch counts and the kernels' CUDA-event times inside the
      run; then each kernel against its plain version, outputs, times and
      bounds, at the path's largest chunk;
-  6. the Myers kernel against its plain version on an edge batch and at its
-     longest query (4,096 words);
+  6. the Myers kernel against its plain version on an edge batch, on
+     batches whose query reaches each lane count (G = 1..32 lanes a
+     problem) and one to three passes, and (C9) at 4,097 query words
+     (131,104 bases, 9 passes) against a 2 kb target, timed with its
+     bound; then the ``myers`` algorithm on that pair, a SUCCESS path at
+     the plain version's score;
   7. the ``myers`` main path on the same 1,024 pairs, with its checks,
      launch counts of all three kernels, routes and times; each kernel
      against its plain version, with times and bounds, at the inputs the
@@ -43,6 +47,9 @@ Phases, one line or more each:
      graph against 60 bases (banded: sums on NEG); then the
      one-kernel-per-window POA (B10) on the same windows against the
      lockstep loop over the plain versions, with and without the MSA;
+ 10b. B5's variants (a warp or a block a window, with the ring, a 2-row
+     ring and none; 72 pred slots; 8-byte plane words) against its plain
+     version at every lockstep launch;
  11. ``cli poa`` on the card against the consensus golden, ``--msa`` against
      the MSA golden and the CPU, and ``--banded`` on the card and the CPU,
      byte for byte;
@@ -72,15 +79,30 @@ Phases, one line or more each:
      wall beside phase 5's, each kernel against its plain version at its
      largest launch with times and bounds; then ``myers``,
      ``hirschberg-myers`` and ``banded-escalate`` through it on phase 7's
-     subset, equal to the diag route.
-Then one JSON line describing every kernel: under ``paths``, for each main
+     subset, equal to the diag route;
+ 17. C8, the aligner: a pair whose lengths differ by 16,385 through all four
+     algorithms and both banded kernels (B1's and B3's device-memory
+     variants, B3 at W = 65,672, a Hirschberg base case against a 16,385
+     base target side), SUCCESS paths at one distance, diag == row,
+     ``hirschberg-myers`` equal to the plain versions, each device variant
+     against its plain version with times and bounds;
+ 18. C8, POA: windows at ``cli poa``'s sizes of 2,048-base sequences (every
+     launch against the plain versions; B8 on device memory, B5 a block a
+     window) and of 9,000-base sequences (B7 and B8 on device memory, B5
+     past L = 8,191), each kernel at its largest launch against its plain
+     version with times and bounds.
+Then a line per redesigned kernel (B4, B5) with its time at each main
+path's largest launch beside the first design's as PERF.md records it
+(FIRST_DESIGN_MS, not measured by this run) and its bound, and a line per
+variant of phases 6, 17 and 18.  Then one JSON line describing every kernel: under ``paths``, for each main
 path (``ukkonen``, ``myers``, ``poa``, ``poa_deep``, ``poa_msa``,
 ``poa_window``, ``poa_window_msa``, ``ukkonen_row``), its launches in that
 run (counts zeroed just before it, read just after) and the kernel's time,
 plain time and bound (the least time the card could take for the same work)
 at that path's largest launch, and the kernel's device time in that run
-(``run_ms``); at the top
-level the sum of the launches, the largest difference from the plain
+(``run_ms``); under ``variants`` the figures of phases 6, 17 and 18 (every
+number in the line measured by this run, but the bounds, which it
+computes); at the top level the sum of the launches, the largest difference from the plain
 version seen anywhere, and the times of the path where the kernel spent the
 most device time.  Last ``{"ok": true, "device":
 {...}}``.  Any failed check raises,
@@ -92,6 +114,7 @@ made with NumPy from ``SEED``, and it checks at its end that no module of
 """
 
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -112,6 +135,16 @@ OPS_PER_BAND_CELL = 7    # nw_diag, nw_row: compare, 2 adds, 2 mins, 2 code
                          # selects (one function: the same count for both)
 OPS_PER_WALK_STEP = 16   # tb_decode(_row): address, extract, pack, i/j update
 OPS_PER_MYERS_WORD = 27  # myers: one 32-bit word update (ops/myers_pallas.py)
+
+
+#: the first designs' times at the main paths' largest launches as PERF.md
+#: section 6 records them (chip_smoke.py on NVIDIA H100 80GB HBM3,
+#: 700.00 W), printed beside the redesigned kernels' in the human-readable
+#: lines only, labelled so: (kernel, path) -> ms
+FIRST_DESIGN_MS = {("poa_nwtb", "poa"): 1.368, ("poa_nwtb", "poa_deep"): 2.042,
+                   ("poa_nwtb", "poa_msa"): 1.191,
+                   ("myers", "myers"): 9.327}
+FIRST_MYERS_MS = {"score pass": 7.023, "Hirschberg level 0": 9.327}
 
 
 class SmokeFailure(RuntimeError):
@@ -668,20 +701,35 @@ def myers_edge_pairs(rng):
     return pairs
 
 
-def phase_myers_edges(rng) -> int:
+#: query words of phase 6's batches that reach each lane count of B4 (G =
+#: 1, 2, 4, 8, 16, 32) and one, two and three passes (ops.myers.myers_plan)
+MYERS_PLAN_WORDS = (1, 5, 9, 17, 33, 65, 129, 513, 1100)
+#: C9: the first query length past the first design's 4,096 words
+C9_WORDS = 4097
+
+
+def phase_myers_edges(rng, sm_mhz: float) -> tuple[int, dict]:
     """Phase 6: the Myers kernel against its plain version, whole rows and
-    scores, on the edge batch and at the longest query it takes (4,096
-    words: 1,024 threads and more than the default 48 KB of shared
-    memory)."""
+    scores, on the edge batch, on batches whose query reaches each lane
+    count and one to three passes, and (C9) at 4,097 query words (131,104
+    bases, 9 passes) against a 2 kb target, timed with its bound.  ->
+    (the largest difference, the C9 launch's figures)."""
     import torch
     from claragenomicsanalysis_tpu_torch.ops import myers
     from claragenomicsanalysis_tpu_torch.ops.convert import from_reference
     pairs = myers_edge_pairs(rng)
-    a = rng.integers(0, 4, myers.MAX_WORDS * myers.WORD)
-    longest = [(to_str(a), to_str(mutate(a[:2000], 100, rng)))]
+    batches = [("edge batch", pairs, None)]
+    for words in MYERS_PLAN_WORDS:
+        Lq = 32 * words
+        b = []
+        for n in (Lq, Lq - 1, max(1, Lq - 40), min(33, Lq), 1, 0):
+            a = rng.integers(0, 4, n)
+            b.append((to_str(a), to_str(mutate(a[:300], 12, rng))))
+        batches.append((f"{words} words (G, K, passes = "
+                        f"{myers.myers_plan(words)})", b, Lq))
     err = 0
-    for name, batch in (("edge batch", pairs), ("longest query", longest)):
-        q, qlen, t, tlen = from_reference(*pack(batch), device="cuda")[:4]
+    for name, batch, Lq in batches:
+        q, qlen, t, tlen = from_reference(*pack(batch, Lq), device="cuda")[:4]
         rows_k, s_k = myers.myers_bottom_row(q, qlen, t, tlen)
         torch.cuda.synchronize()
         rows_p, s_p = myers.myers_bottom_row_torch(q, qlen, t, tlen)
@@ -702,7 +750,29 @@ def phase_myers_edges(rng) -> int:
                               torch.arange(t.shape[1] + 1,
                                            dtype=torch.int32)),
                   "an empty query's bottom row must count the columns")
-    return err
+
+    # C9: 4,097 words against a short target, kernel and plain, then the
+    # myers algorithm on the pair
+    a = rng.integers(0, 4, C9_WORDS * 32)
+    pair = [(to_str(a), to_str(mutate(a[50_000:52_000], 100, rng)))]
+    q, qlen, t, tlen = from_reference(*pack(pair), device="cuda")[:4]
+    c9 = time_myers(q, qlen, t, tlen, sm_mhz)
+    print(f"phase 6 C9: myers at {c9['shape']} (plan G, K, passes = "
+          f"{myers.myers_plan(C9_WORDS)}): kernel {c9['ms']:.3f} ms vs plain "
+          f"{c9['plain_ms']:.1f} ms, rows+scores max diff {c9['err']}; "
+          f"bound {c9['bound'][0]:.4f} ms ({c9['bound'][1]})")
+    check(c9["err"] == 0, "C9: myers disagrees with its plain version at "
+          "4,097 words")
+    err = max(err, c9["err"])
+    _, res, w = run_aligner(pair, "myers")
+    check_paths(res, pair, "C9 myers")
+    check(res[0].edit_distance == int(c9["scores"][0]),
+          "C9: the myers distance differs from B4's plain score")
+    print(f"phase 6 C9: the myers algorithm on the {len(pair[0][0])} x "
+          f"{len(pair[0][1])} pair in {w:.3f} s: SUCCESS, distance "
+          f"{res[0].edit_distance} == the plain score")
+    return err, dict(c9, variant=f"{C9_WORDS} query words, "
+                     f"{myers.myers_plan(C9_WORDS)[2]} passes")
 
 
 def time_myers(q, qlen, t, tlen, sm_mhz: float) -> dict:
@@ -818,6 +888,9 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
               f" Tcells/s")
         check(c["err"] == 0, f"myers kernel disagrees with its plain version "
               f"at the {name}")
+        print(f"phase 7 myers at the {name}: {c['ms']:.3f} ms against the "
+              f"first design's {FIRST_MYERS_MS.get(name, float('nan')):.3f} "
+              f"ms (recorded in PERF.md, not this run)")
     largest = max(calls, key=lambda k: calls[k]["cells"])
     print(f"phase 7 largest Myers call by work: the {largest}")
     per["myers"] = dict(calls[largest], err=max(c["err"]
@@ -913,6 +986,89 @@ def phase_cli_algorithms():
               f"({len(outs[0].splitlines())} lines)")
         check(same, f"cli align --algorithm {algorithm} differs between "
               f"cuda and cpu")
+
+
+def phase_c8_align(sm_mhz: float) -> dict:
+    """Phase 17 (C8, aligner): a pair whose lengths differ by 16,385 (1,000
+    bases against 16,385 N and their 1,000-base source, 5 % edits) through
+    all four algorithms
+    and both banded kernels: ``ukkonen`` gives it r = 32,832 (B1's and B3's
+    device-memory variants, B3 at W = 65,672 in two lane groups), the other
+    three go to Hirschberg, whose first base case (about 32 query bases
+    against the N run) runs B1 (or B3) at r = 32,768 on device memory.  Each result is a SUCCESS path at its
+    distance; the distances are equal, the diag and row routes give the
+    same paths, and ``hirschberg-myers`` equals the plain versions
+    (device="cpu").  Then each kernel at ``ukkonen``'s launch (its only
+    one, so its result is the decode of that traceback) and at Hirschberg's
+    largest base case against its plain version on the card, exactly,
+    timed with its bound.  -> kernel name -> a list of variant figures."""
+    import numpy as np
+    from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row
+    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    rng = np.random.default_rng(SEED + 17)
+    # the target is 16,385 N (which match nothing) and then the query's
+    # source: every optimal path deletes the N first, so Hirschberg's first
+    # fragment (about 32 query bases) holds them all
+    source = rng.integers(0, 4, 1_100)
+    query = mutate(source, 55, rng)[:1_000]
+    pair = [(to_str(query), "N" * 16_385 + to_str(source[:1_000]))]
+    check(len(pair[0][1]) - len(pair[0][0]) == 16_385, "C8 pair lengths")
+    out, largest = {}, {}
+    for algorithm in ("ukkonen", "myers", "hirschberg-myers",
+                      "banded-escalate"):
+        for kernel in ("diag", "row"):
+            zero_launches()
+            with kernel_times() as kt:
+                _, res, w = run_aligner(pair, algorithm, kernel=kernel)
+            check_paths(res, pair, f"C8 {algorithm} {kernel}")
+            out[(algorithm, kernel)] = res[0]
+            name = "nw_row" if kernel == "row" else "nw_diag"
+            args = kt.largest[name]
+            if algorithm in ("ukkonen", "hirschberg-myers"):
+                largest[(name, algorithm)] = args
+            print(f"phase 17 C8 {algorithm} (kernel=\"{kernel}\"): "
+                  f"{w:.3f} s, distance {res[0].edit_distance}, launches "
+                  f"{read_launches()}, largest {name} launch r={args[4]} "
+                  f"B={args[0].shape[0]} Lq={args[0].shape[1]} "
+                  f"Lt={args[2].shape[1]}")
+    dists = {r.edit_distance for r in out.values()}
+    check(len(dists) == 1, f"C8: the distances differ: {dists}")
+    for algorithm in ("ukkonen", "myers", "hirschberg-myers",
+                      "banded-escalate"):
+        check(out[(algorithm, "diag")].path == out[(algorithm, "row")].path,
+              f"C8 {algorithm}: the row route differs from the diag route")
+    check(out[("myers", "diag")].path == out[("hirschberg-myers",
+                                               "diag")].path
+          == out[("banded-escalate", "diag")].path,
+          "C8: the three Hirschberg routes differ")
+    for algorithm in ("hirschberg-myers",):
+        t0 = time.perf_counter()
+        _, res, _ = run_aligner(pair, algorithm, device="cpu")
+        same = (res[0].path, res[0].edit_distance) == (
+            out[(algorithm, "diag")].path,
+            out[(algorithm, "diag")].edit_distance)
+        print(f"phase 17 C8 {algorithm} on the plain versions (device="
+              f"\"cpu\", {time.perf_counter() - t0:.1f} s): equal to the "
+              f"card's: {same}")
+        check(same, f"C8 {algorithm}: the card differs from the plain "
+              f"versions")
+    variants = {}
+    for (name, algorithm), (q, qlen, t, tlen, r) in largest.items():
+        kernel = "row" if name == "nw_row" else "diag"
+        Lq, Lt = q.shape[1], t.shape[1]
+        plan = (nw_diag.nw_diag_variant(Lq, Lt, r) if kernel == "diag"
+                else nw_row.nw_row_plan(Lq, Lt, r))
+        check("device" in plan, f"C8 {algorithm}: {name}'s largest launch "
+              f"(r={r}, Lq={Lq}, Lt={Lt}) is not on device memory: {plan}")
+        per = time_banded(q, qlen, t, tlen, r, sm_mhz,
+                          f"phase 17 C8 {algorithm} {name} {plan}:", kernel)
+        for k, v in per.items():
+            variants.setdefault(k, []).append(dict(
+                v, variant=f"C8 {algorithm}, |lq - lt| = 16,385: {plan}"))
+    print(f"phase 17 C8: all four algorithms, both kernels: SUCCESS paths "
+          f"at distance {dists.pop()}, diag == row, equal to the plain "
+          f"versions")
+    return variants
 
 
 # ------------------------------------------------------------------ POA
@@ -1151,7 +1307,8 @@ def probe_poa(compare: bool, count_work: bool = False):
 
 
 def run_poa_arrays(bs, banded: bool, arrays, compare: bool,
-                   msa: bool = False, count_work: bool = False):
+                   msa: bool = False, count_work: bool = False,
+                   scores=None):
     """ops.poa_window.run_windows (the lockstep route) on these windows,
     all in one launch per step, under probe_poa -> (its seven outputs, the
     probe's stats)."""
@@ -1160,7 +1317,7 @@ def run_poa_arrays(bs, banded: bool, arrays, compare: bool,
     from claragenomicsanalysis_tpu_torch.ops import poa_window
     with probe_poa(compare, count_work) as stats:
         out = poa_window.run_windows(
-            bs, PoaScores(), banded,
+            bs, scores or PoaScores(), banded,
             *(torch.as_tensor(a).cuda() for a in arrays), msa)
     return out, stats
 
@@ -1224,6 +1381,138 @@ def phase_poa_kernels() -> int:
               "plain version")
         errs[banded] = max(probed["err"], err_w)
     return max(errs.values())
+
+
+#: B5 edge batches: (BatchSize keywords, banded, variant, ring depth,
+#: scores); a warp a window and a block a window (rows up to 512 columns,
+#: and wider), each with the 8-row ring, a 2-row ring or none; 72 pred
+#: slots (past the 64 a warp carries in flight); 8-byte plane words (scores
+#: whose cells pass 24 bits), full and banded
+NWTB_VARIANTS = (
+    (dict(max_sequence_size=100, max_sequences_per_poa=5), False, "warp",
+     8, None),
+    (dict(max_sequence_size=100, max_sequences_per_poa=5), False, "warp", 0,
+     None),
+    (dict(max_sequence_size=100, max_sequences_per_poa=5, band_width=24),
+     True, "warp", 2, None),
+    (dict(max_sequence_size=100, max_sequences_per_poa=5), False, "block",
+     8, None),
+    (dict(max_sequence_size=100, max_sequences_per_poa=5, band_width=24),
+     True, "block", 0, None),
+    (dict(max_sequence_size=600, max_sequences_per_poa=4), False, "block",
+     8, None),
+    (dict(max_sequence_size=600, max_sequences_per_poa=4), False, "block",
+     0, None),
+    (dict(max_sequence_size=100, max_sequences_per_poa=5,
+          max_pred_per_node=72), False, "warp", 8, None),
+    (dict(max_sequence_size=100, max_sequences_per_poa=5), False, "warp", 8,
+     (20_000, -15_000, -20_000)),
+    (dict(max_sequence_size=100, max_sequences_per_poa=5, band_width=24),
+     True, "block", 8, (20_000, -15_000, -20_000)),
+)
+
+
+@contextlib.contextmanager
+def nwtb_forced(variant: str, ring: int):
+    """Inside the block ops.poa_nwtb.nwtb_plan gives launches of any window
+    count the ``variant`` asked for (BLOCK_WINDOWS 0: warp where a row
+    fits; a million: block) and a ring of at most ``ring`` rows
+    (RING_ROWS)."""
+    from claragenomicsanalysis_tpu_torch.ops import poa_nwtb
+    saved = poa_nwtb.BLOCK_WINDOWS, poa_nwtb.RING_ROWS
+    poa_nwtb.BLOCK_WINDOWS = 0 if variant == "warp" else 1 << 20
+    poa_nwtb.RING_ROWS = ring
+    try:
+        yield
+    finally:
+        poa_nwtb.BLOCK_WINDOWS, poa_nwtb.RING_ROWS = saved
+
+
+def phase_nwtb_variants() -> int:
+    """Phase 10b: B5's variants (ops.poa_nwtb.nwtb_plan, steered by
+    nwtb_forced) against its plain version at every launch of a lockstep
+    run, and with them the other lockstep kernels.  -> the largest
+    difference."""
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             PoaScores)
+    from claragenomicsanalysis_tpu_torch.ops import poa_nwtb
+    err = 0
+    for i, (kw, banded, variant, ring, sc) in enumerate(NWTB_VARIANTS):
+        bs = BatchSize(**kw)
+        scores = PoaScores(*sc) if sc else PoaScores()
+        S, L = bs.max_sequences_per_poa, bs.padded_seq
+        N, P = bs.padded_nodes, bs.max_pred_per_node
+        bw = bs.band_width if banded else 0
+        _, _, arrays = poa_window_arrays(24, bs.max_sequence_size - 10, S,
+                                         max(3, bs.max_sequence_size // 30),
+                                         L, SEED + 40 + i)
+        word = poa_nwtb.nwtb_word_bytes(N, L, scores)
+        with nwtb_forced(variant, ring):
+            plan = poa_nwtb.nwtb_plan(24, N, P, L, bw, word)
+            check(plan[0] == variant and plan[2] == ring,
+                  f"B5 edge batch {i} got the plan {plan}")
+            _, probed = run_poa_arrays(bs, banded, arrays, True,
+                                       scores=scores)
+        err = max(err, probed["err"])
+        print(f"phase 10b poa_nwtb variant {plan} (N={N} L={L} P={P}"
+              f"{', banded' if banded else ''}, {word}-byte words): every "
+              f"lockstep launch vs its plain version, max diff "
+              f"{probed['err']}")
+        check(probed["err"] == 0, f"B5 variant {plan} disagrees with its "
+              f"plain version")
+    return err
+
+
+def phase_c8_poa(sm_mhz: float) -> dict:
+    """Phase 18 (C8, POA): windows at ``cli poa``'s sizes (BatchSize from
+    the longest sequence S: N = 3S, P = 4, MC = 2S) through the lockstep
+    route: two windows of three 2,048-base sequences, every launch of every
+    kernel against its plain version (B8 on device memory, B5 a block a
+    window), then two windows of three 9,000-base sequences (B7 and B8 on
+    device memory, B5 past the first design's L = 8,191 with a 4-row ring),
+    each kernel at its largest launch against its plain version; times and
+    bounds at both.  -> kernel name -> a list of variant figures."""
+    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
+    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus,
+                                                     poa_nwtb, poa_topsort)
+    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    variants = {}
+    for blen, compare in ((2_048, True), (9_000, False)):
+        bs = BatchSize(max_sequence_size=blen, max_sequences_per_poa=3)
+        N, L, P = bs.padded_nodes, bs.padded_seq, bs.max_pred_per_node
+        MC = bs.max_consensus_size
+        plan = {"poa_topsort": poa_topsort.topsort_variant(N, P),
+                "poa_nwtb": poa_nwtb.nwtb_plan(2, N, P, L, 0),
+                "poa_consensus": poa_consensus.consensus_variant(N, P, MC)}
+        _, _, arrays = poa_window_arrays(2, blen - 8, 3, blen // 40, L,
+                                         SEED + 50 + blen)
+        zero_launches()
+        t0 = time.perf_counter()
+        with kernel_times() as kt:
+            out, probed = run_poa_arrays(bs, False, arrays, compare)
+            launches = read_launches(POA_KERNELS)
+            dev_ms = kt.ms()
+        status = out[5].tolist()
+        print(f"phase 18 C8 poa: 2 windows of 3 x {blen - 8} bases at cli "
+              f"poa's BatchSize (N={N} L={L} P={P} MC={MC}), variants "
+              f"{plan}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{launches}, statuses {status}, consensus lengths "
+              f"{out[2].tolist()}" + (f"; every launch vs its plain version, "
+                                      f"max diff {probed['err']}"
+                                      if compare else ""))
+        check(status == [0, 0], f"C8 poa {blen}: statuses {status}")
+        check(probed["err"] == 0, f"C8 poa {blen}: a kernel disagrees with "
+              f"its plain version")
+        check(all(abs(int(n) - (blen - 8)) < blen // 10
+                  for n in out[2].tolist()), "C8 poa: consensus lengths")
+        per = replay_poa_kernels(f"phase 18 C8 poa {blen}:", kt, launches,
+                                 dev_ms, bs, sm_mhz)
+        kt.largest.clear()
+        for k, v in per.items():
+            variants.setdefault(k, []).append(dict(
+                v, variant=f"C8 cli poa, {blen - 8}-base sequences: "
+                           f"{plan.get(k, 'as before')}"))
+    return variants
 
 
 def phase_poa_cli():
@@ -1376,6 +1665,41 @@ def check_graphs(tag: str, bs, banded: bool, windows, arrays, sub) -> None:
           f"and predw; {n_none} failed windows export None")
 
 
+def replay_poa_kernels(tag: str, kt, launches: dict, dev_ms: dict, bs,
+                       sm_mhz: float) -> dict:
+    """Each lockstep kernel at its largest launch of a run against its
+    plain version, exactly, with its time (mean of 5 launches), the plain
+    version's (one call) and its bound.  -> kernel name -> figures."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    N, L = bs.padded_nodes, bs.padded_seq
+    per = {}
+    for k, (name, plain, work) in POA_STEPS.items():
+        if not launches[k]:
+            continue
+        args = kt.largest[k]
+        kernel, plain = getattr(poa_window, name), getattr(poa_window, plain)
+        ms, out_k = cuda_ms(lambda: kernel(*args), 5)
+        ms_p, out_p = cuda_ms(lambda: plain(*args), 1)
+        err = maxdiff(out_k, out_p)
+        ops, nbytes, what = work(args, out_k)
+        b = bound(ops, nbytes, sm_mhz)
+        each = [s.elapsed_time(e) for s, e in kt.events[k]]
+        W = args[0].shape[0] if torch.is_tensor(args[0]) else \
+            args[0].base.shape[0]
+        shape = f"W={W} N={N} L={L} P={bs.max_pred_per_node}"
+        print(f"{tag} {k}: {launches[k]} launches, {dev_ms[k]:.3f} ms in "
+              f"the run (largest launch {max(each):.3f} ms by its events); "
+              f"replayed at the largest launch ({shape}): kernel {ms:.3f} ms "
+              f"vs plain {ms_p:.1f} ms, max diff {err}; bound {what}, "
+              f"{ops} int32 ops, {nbytes} B -> {b[0]:.4f} ms ({b[1]})")
+        check(err == 0, f"{tag}: {k} disagrees with its plain version at its "
+              f"largest launch")
+        per[k] = {"shape": shape, "ms": ms, "plain_ms": ms_p, "bound": b,
+                  "err": err, "launches": launches[k], "run_ms": dev_ms[k]}
+    return per
+
+
 def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
                    banded: bool, sm_mhz: float, msa: bool = False):
     """Phases 12, 13 and 14: a POA main path through create_batch(...,
@@ -1486,31 +1810,7 @@ def phase_poa_main(tag: str, cfg: dict, n: int, blen: int, edits: int,
           f"{tag}: the consensus is not closer to the backbone than a "
           f"support")
 
-    # each kernel at its largest launch against its plain version
-    per = {}
-    for k, (name, plain, work) in POA_STEPS.items():
-        if not launches[k]:
-            continue
-        args = kt.largest[k]
-        kernel, plain = getattr(poa_window, name), getattr(poa_window, plain)
-        ms, out_k = cuda_ms(lambda: kernel(*args), 5)
-        ms_p, out_p = cuda_ms(lambda: plain(*args), 1)
-        err = maxdiff(out_k, out_p)
-        ops, nbytes, what = work(args, out_k)
-        b = bound(ops, nbytes, sm_mhz)
-        each = [s.elapsed_time(e) for s, e in kt.events[k]]
-        W = args[0].shape[0] if torch.is_tensor(args[0]) else \
-            args[0].base.shape[0]
-        shape = f"W={W} N={N} L={L} P={bs.max_pred_per_node}"
-        print(f"{tag} {k}: {launches[k]} launches, {dev_ms[k]:.3f} ms in "
-              f"the run (largest launch {max(each):.3f} ms by its events); "
-              f"replayed at the largest launch ({shape}): kernel {ms:.3f} ms "
-              f"vs plain {ms_p:.1f} ms, max diff {err}; bound {what}, "
-              f"{ops} int32 ops, {nbytes} B -> {b[0]:.4f} ms ({b[1]})")
-        check(err == 0, f"{tag}: {k} disagrees with its plain version at its "
-              f"largest launch")
-        per[k] = {"shape": shape, "ms": ms, "plain_ms": ms_p, "bound": b,
-                  "err": err, "launches": launches[k], "run_ms": dev_ms[k]}
+    per = replay_poa_kernels(tag, kt, launches, dev_ms, bs, sm_mhz)
     kt.largest.clear()      # the kept inputs of the largest launches
     return per, dict(run, bs=bs, windows=windows, banded=banded, msa=msa,
                      cfg=cfg)
@@ -1722,12 +2022,14 @@ def main() -> int:
           f"{max(len(b) for _, b in pairs)}, made in "
           f"{time.perf_counter() - t0:.1f} s")
     ukk = phase_main(pairs, sm_mhz)
-    errs["myers"] = phase_myers_edges(np.random.default_rng(SEED + 3))
+    errs["myers"], c9 = phase_myers_edges(np.random.default_rng(SEED + 3),
+                                          sm_mhz)
     paths = {"ukkonen": ukk["kernels"]}
     paths["myers"], myers_results = phase_myers_main(pairs, ukk, sm_mhz)
     phase_short_reads()
     phase_cli_algorithms()
     errs |= dict.fromkeys(POA_KERNELS, phase_poa_kernels())
+    errs["poa_nwtb"] = max(errs["poa_nwtb"], phase_nwtb_variants())
     phase_poa_cli()
     paths["poa"], corr = phase_poa_main("phase 12", POA_CORR, N_POA, 128,
                                         max(5, 128 // 20), False, sm_mhz)
@@ -1743,6 +2045,10 @@ def main() -> int:
     phase_poa_window_refuses("phase 15 (deep shape)", POA_DEEP)
     paths["ukkonen_row"] = phase_row(pairs, ukk, myers_results[:N_SUBSET],
                                      sm_mhz)
+    variants = {"myers": [c9]}
+    for more in (phase_c8_align(sm_mhz), phase_c8_poa(sm_mhz)):
+        for k, v in more.items():
+            variants.setdefault(k, []).extend(v)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "claragenomicsanalysis_tpu")
@@ -1778,7 +2084,8 @@ def main() -> int:
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(v["launches"] for v in runs.values()),
-            "max_abs_err": max([errs[k]] + [v["err"] for v in timed.values()]),
+            "max_abs_err": max([errs[k]] + [v["err"] for v in timed.values()]
+                               + [v["err"] for v in variants.get(k, ())]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound"][0], "bound_by": top["bound"][1],
             "library_ms": None,
@@ -1787,13 +2094,29 @@ def main() -> int:
                 {"shape": v["shape"], "ms": v["ms"],
                  "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
                  "bound_by": v["bound"][1]} if p in timed else {})
-                for p, v in runs.items()}})
+                for p, v in runs.items()},
+            "variants": [{"variant": v["variant"], "shape": v["shape"],
+                          "ms": v["ms"], "plain_ms": v["plain_ms"],
+                          "bound_ms": v["bound"][0],
+                          "bound_by": v["bound"][1]}
+                         for v in variants.get(k, ())]})
     # the time each kernel spends above its bound, summed over the main
     # paths: launches in the path's run x (time - bound) at its largest
     # launch; the order in which redesigning the kernels pays most
     gap = {k["name"]: sum(v["launches"] * (v["ms"] - v["bound_ms"])
                           for v in k["paths"].values() if "ms" in v)
            for k in kernels}
+    for k in kernels:
+        for p, v in k["paths"].items():
+            if (k["name"], p) in FIRST_DESIGN_MS and "ms" in v:
+                print(f"{k['name']} at {p} ({v['shape']}): {v['ms']:.3f} ms, "
+                      f"first design {FIRST_DESIGN_MS[(k['name'], p)]:.3f} "
+                      f"ms (recorded in PERF.md, not this run), bound "
+                      f"{v['bound_ms']:.4f} ms, {v['launches']} launches")
+        for v in k["variants"]:
+            print(f"{k['name']} {v['variant']} ({v['shape']}): "
+                  f"{v['ms']:.3f} ms vs plain {v['plain_ms']:.1f} ms, bound "
+                  f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
     print("time above the bound, launches x (ms - bound_ms) over the main "
           "paths: " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
               gap.items(), key=lambda kv: -kv[1])))
@@ -1806,5 +2129,546 @@ def main() -> int:
     return 0
 
 
+# ------------------------------------------------------- measurement modes
+# Run by hand on the card; the smoke (no arguments) runs neither.
+#
+#   python3 chip_smoke.py --nwtb-split
+#     Where the graph NW's time goes: forward pass, end cell and traceback,
+#     timed with clock64() stamps, for B5's first design (cga::nwtb_block in
+#     csrc/poa_nwtb.cuh, the device function B10 still runs, in a
+#     one-block-a-window kernel) and for B5 as it stands (csrc/poa_nwtb.cu,
+#     with the row's own parts too: setup, pass 1, scan, pass 2, the next
+#     row's facts, sync and copy).  It writes stamped copies of the sources
+#     into build/nwtb_split/ (string edits at named anchors; an edit to
+#     those sources that moves an anchor makes it raise), compiles them, and
+#     runs both on the graph-NW inputs of the last add of a lockstep run at
+#     the deep, correction and MSA shapes (this script's data and seed); B5
+#     as it stands also in the variant its plan does not pick.  Per shape
+#     it prints each kernel's time, the cycles of each part per window, the
+#     cycles a row and a walk step, and how many ranks back the preds lie.
+#     (A stamped kernel runs a little slower than the kernel itself.)
+#
+#   python3 chip_smoke.py --turns PARENT_DIR
+#     B1 (nw_diag), B3 (nw_row), B7 (poa_topsort) and B8 (poa_consensus) of
+#     this checkout against the same kernels built from another checkout
+#     (the parent commit, unpacked with git archive), on identical inputs,
+#     in their shared-memory variants: B1 and B3 on 449 pairs of 10,000-base
+#     queries at r = 72 (the ukkonen_row path's largest launch), B7 and B8
+#     at the last launch of a lockstep run at the correction, deep and MSA
+#     shapes.  Both builds' outputs are checked equal, then each kernel is
+#     timed parent, this, this, parent, TURNS_ROUNDS times, TURNS_REPS
+#     launches a sample; the medians print with the card's name and power
+#     limit.
+
+SPLIT_KERNEL = r'''
+#include "poa_nwtb_clk.cuh"
+__global__ void split_kernel(
+    const int32_t* seq, const int32_t* order, const int32_t* rank,
+    const int32_t* npred, const int32_t* base, const int32_t* nsucc,
+    const int32_t* pred, const int32_t* slens, const int32_t* node_counts,
+    const int32_t* alive, int32_t* planes, int32_t* pn, int32_t* pp,
+    int32_t* k0s, int32_t* band_oks, long long* clk, int N, int P, int L,
+    int match, int mismatch, int g, int band_width) {
+  extern __shared__ __align__(16) int32_t smem[];
+  const int w = blockIdx.x;
+  const int TL = N + L;
+  int32_t* pnw = pn + (size_t)w * TL;
+  int32_t* ppw = pp + (size_t)w * TL;
+  for (int i = threadIdx.x; i < TL; i += blockDim.x) pnw[i] = ppw[i] = -2;
+  if (!alive[w]) return;
+  const size_t wn = (size_t)w * N;
+  cga::nwtb_block(seq + (size_t)w * L, order + wn, rank + wn, npred + wn,
+                  base + wn, nsucc + wn, pred + wn * P, slens[w],
+                  node_counts[w], planes + (size_t)w * (N + 1) * (L + 1),
+                  pnw, ppw, N, P, L, match, mismatch, g, band_width, smem,
+                  k0s + w, band_oks + w, clk + 8 * w);
+}
+extern "C" int split_launch(void** a, int W, int N, int P, int L, int match,
+                            int mismatch, int g, int bw, void* stream) {
+  const int threads = cga::nwtb_threads(L);
+  const int smem = 4 * (int)cga::nwtb_scratch_ints(N, P, L);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(split_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  split_kernel<<<W, threads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)a[0], (const int32_t*)a[1], (const int32_t*)a[2],
+      (const int32_t*)a[3], (const int32_t*)a[4], (const int32_t*)a[5],
+      (const int32_t*)a[6], (const int32_t*)a[7], (const int32_t*)a[8],
+      (const int32_t*)a[9], (int32_t*)a[10], (int32_t*)a[11],
+      (int32_t*)a[12], (int32_t*)a[13], (int32_t*)a[14], (long long*)a[15],
+      N, P, L, match, mismatch, g, bw);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def split_stamped_header() -> str:
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    """poa_nwtb.cuh with clk[0..3] stamped after the staging, after the
+    rows, after the end cell and at the walk's end (clk[4]: its steps)."""
+    src = open(os.path.join(_build.CSRC, "poa_nwtb.cuh")).read()
+    edits = [
+        ("int32_t* __restrict__ band_ok_out) {",
+         "int32_t* __restrict__ band_ok_out, long long* clk) {"),
+        ("  __syncthreads();\n\n  const int ncol = slen + 1;",
+         "  __syncthreads();\n  if (tid == 0) clk[0] = clock64();\n\n"
+         "  const int ncol = slen + 1;"),
+        ("  // end cell: the best sink",
+         "  if (tid == 0) clk[1] = clock64();\n  // end cell: the best sink"),
+        ("  const bool ok = vmax > kNeg / 2;",
+         "  if (tid == 0) clk[2] = clock64();\n"
+         "  const bool ok = vmax > kNeg / 2;"),
+        ("  if (lane == 0) *k0_out = k;\n}",
+         "  if (lane == 0) {\n    *k0_out = k;\n    clk[3] = clock64();\n"
+         "    clk[4] = TL - k;\n  }\n}"),
+    ]
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"poa_nwtb.cuh changed: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+#: stamps added to csrc/poa_nwtb.cu: per window clk[0..4] as the first
+#: design's, clk[5..10] the row's parts summed over its rows
+SPLIT_EDITS = [
+    ("template <typename Word>\nstruct Window {\n",
+     "__device__ long long* g_clk;\ntemplate <typename Word>\n"
+     "struct Window {\n  long long* clk;\n"),
+    ("  for (int r = 0; r < w.nce; ++r) {\n    const int ri = r + 1;",
+     "  if (gt == 0) w.clk[0] = clock64();\n"
+     "  long long a1 = 0, a2 = 0, a3 = 0, a4 = 0, a5 = 0, a6 = 0;\n"
+     "  for (int r = 0; r < w.nce; ++r) {\n"
+     "    const long long ta = clock64();\n    const int ri = r + 1;"),
+    ("    // pass 1: the thread's running max of vals - j*g",
+     "    a6 += clock64() - ta;\n"
+     "    // pass 1: the thread's running max of vals - j*g"),
+    ("    int run2 = group_prefix_max<kWarp>(run, wtot);",
+     "    const long long tb = clock64();\n    a1 += tb - ta;\n"
+     "    int run2 = group_prefix_max<kWarp>(run, wtot);\n"
+     "    const long long tc = clock64();\n    a2 += tc - tb;"),
+    ("    flight_land(w, d, r + 1, f1, rk, nxt, gt, gn);",
+     "    const long long td = clock64();\n    a3 += td - tc;\n"
+     "    flight_land(w, d, r + 1, f1, rk, nxt, gt, gn);"),
+    ("    group_sync<kWarp>();  // the row and the next row's facts are "
+     "complete",
+     "    const long long te = clock64();\n    a4 += te - td;\n"
+     "    group_sync<kWarp>();"),
+    ("      for (int e = gt; e <= hi - lo; e += gn) out[lo + e] = src[e];\n"
+     "    }\n  }",
+     "      for (int e = gt; e <= hi - lo; e += gn) out[lo + e] = src[e];\n"
+     "    }\n    a5 += clock64() - te;\n  }\n"
+     "  if (gt == 0) {\n    w.clk[1] = clock64();\n    w.clk[5] = a6;\n"
+     "    w.clk[6] = a1 - a6;\n    w.clk[7] = a2;\n    w.clk[8] = a3;\n"
+     "    w.clk[9] = a4;\n    w.clk[10] = a5;\n  }"),
+    ("  if (gt != 0) return;\n", "  if (gt != 0) return;\n"
+     "  w.clk[2] = clock64();\n"),
+    ("  *k0_out = k;\n}", "  *k0_out = k;\n  w.clk[3] = clock64();\n"
+     "  w.clk[4] = TL - k;\n}"),
+    ("  win.nce = min(max(win.nc, 0), d.N);",
+     "  win.nce = min(max(win.nc, 0), d.N);\n  win.clk = g_clk + 16 * w;"),
+    ('extern "C" int cga_poa_nwtb(',
+     'extern "C" int set_clk(void* p) {\n'
+     '  return (int)cudaMemcpyToSymbol(g_clk, &p, sizeof(p));\n}\n'
+     'extern "C" int stamped_poa_nwtb('),
+]
+
+
+def split_stamped(src: str, edits) -> str:
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"the source changed: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def split_build() -> ctypes.CDLL:
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    out = os.path.join(ROOT, "build", "nwtb_split")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "poa_nwtb_clk.cuh"), "w") as f:
+        f.write(split_stamped_header())
+    with open(os.path.join(out, "split.cu"), "w") as f:
+        f.write(SPLIT_KERNEL)
+    with open(os.path.join(out, "current.cu"), "w") as f:
+        src = open(os.path.join(_build.CSRC, "poa_nwtb.cu")).read()
+        f.write(split_stamped(src, SPLIT_EDITS))
+    so = os.path.join(out, "libsplit.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-shared", "-o", so, os.path.join(out, "split.cu"),
+                    os.path.join(out, "current.cu")], check=True)
+    lib = ctypes.CDLL(so)
+    lib.split_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    lib.stamped_poa_nwtb.argtypes = [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 13 + [ctypes.c_void_p]
+    lib.set_clk.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def split_measure(lib, tag: str, cfg: dict, n: int, blen: int, edits: int,
+            banded: bool) -> None:
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             PoaScores)
+    from claragenomicsanalysis_tpu_torch.ops import poa_nwtb, poa_window
+    calls = []
+    orig = poa_window.graph_nw_traceback
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    bs = BatchSize(**cfg)
+    S, L = bs.max_sequences_per_poa, bs.padded_seq
+    _, _, arrays = poa_window_arrays(n, blen, S, edits, L,
+                                        SEED + 20 + S)
+    poa_window.graph_nw_traceback = spy
+    try:
+        poa_window.run_windows(bs, PoaScores(), banded,
+                               *(torch.as_tensor(a).cuda() for a in arrays))
+    finally:
+        poa_window.graph_nw_traceback = orig
+    args = calls[-1]
+    seq, order, rank, npred, base, nsucc, pred, slen, nc, alive, sc, bw = args
+    W, L = seq.shape
+    N, P = pred.shape[1], pred.shape[2]
+    dev = seq.device
+    bufs = [t.contiguous() for t in (seq, order, rank, npred, base, nsucc,
+                                     pred, slen, nc)]
+    bufs.append(alive.to(torch.int32))
+    bufs.append(torch.empty((W, N + 1, L + 1), dtype=torch.int32, device=dev))
+    bufs += [torch.empty((W, N + L), dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    bufs += [torch.empty(W, dtype=torch.int32, device=dev) for _ in range(2)]
+    clk = torch.zeros((W, 8), dtype=torch.int64, device=dev)
+    bufs.append(clk)
+    ptrs = (ctypes.c_void_p * len(bufs))(*(t.data_ptr() for t in bufs))
+
+    def go():
+        err = lib.split_launch(ptrs, W, N, P, L, sc.match_score,
+                               sc.mismatch_score, sc.gap_score, bw,
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"split_launch: CUDA error {err}")
+
+    ms, _ = cuda_ms(go, 5)
+    c = clk.cpu().numpy().astype(np.float64)
+    live = alive.cpu().numpy() & (c[:, 3] > 0)
+    fwd, end, walk = (c[live, 1] - c[live, 0], c[live, 2] - c[live, 1],
+                      c[live, 3] - c[live, 2])
+    tot = (fwd + end + walk).sum()
+    rows = nc.cpu().numpy()[live]
+    print(f"{tag}: W={W} N={N} L={L} P={P} band={bw}: first design "
+          f"{ms:.3f} ms; cycles "
+          f"a window: forward {fwd.mean():.0f} ({fwd.sum() / tot:.3f}), end "
+          f"cell {end.mean():.0f} ({end.sum() / tot:.3f}), walk "
+          f"{walk.mean():.0f} ({walk.sum() / tot:.3f}); "
+          f"{(fwd / rows).mean():.1f} a row over {rows.mean():.1f} rows, "
+          f"{(walk / c[live, 4]).mean():.1f}"
+          f" a walk step over {c[live, 4].mean():.1f} steps")
+    # B5 as it stands, in its plan's variant and in the other one
+    W_, N_, P_ = W, N, P
+    plan = poa_nwtb.nwtb_plan(W_, N_, P_, L, bw)
+    other = "block" if plan[0] == "warp" else "warp"
+    clk16 = torch.zeros((W, 16), dtype=torch.int64, device=dev)
+    if lib.set_clk(clk16.data_ptr()):
+        raise RuntimeError("set_clk failed")
+    for variant in (plan[0], other):
+        with nwtb_forced(variant, poa_nwtb.RING_ROWS):
+            v, threads, ring = poa_nwtb.nwtb_plan(W_, N_, P_, L, bw)
+        if v != variant:
+            continue  # rows too wide for a warp
+        clk16.zero_()
+
+        def go2():
+            err = lib.stamped_poa_nwtb(
+                *(t.data_ptr() for t in bufs[:15]), W, N, P, L,
+                sc.match_score, sc.mismatch_score, sc.gap_score, bw,
+                int(v == "block"), threads, ring,
+                poa_nwtb.ring_width(L, bw), 4,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"stamped_poa_nwtb: CUDA error {err}")
+
+        ms2, _ = cuda_ms(go2, 5)
+        c = clk16.cpu().numpy().astype(np.float64)
+        ok = alive.cpu().numpy() & (c[:, 3] > 0)
+        rows_ = nc.cpu().numpy()[ok]
+        fwd, end, walk = (c[ok, 1] - c[ok, 0], c[ok, 2] - c[ok, 1],
+                          c[ok, 3] - c[ok, 2])
+        tot = (fwd + end + walk).sum()
+        parts = c[ok, 5:11].sum(0) / rows_.sum()
+        print(f"{tag}: B5 now, {v} ({threads} threads, ring {ring}"
+              f"{', the plan' if v == plan[0] else ''}): {ms2:.3f} ms "
+              f"stamped; cycles a window: forward {fwd.mean():.0f} "
+              f"({fwd.sum() / tot:.3f}), end cell {end.mean():.0f}, walk "
+              f"{walk.mean():.0f} ({walk.sum() / tot:.3f}); "
+              f"{(fwd / rows_).mean():.1f} a row (setup {parts[0]:.0f}, "
+              f"pass 1 {parts[1]:.0f}, scan {parts[2]:.0f}, pass 2 "
+              f"{parts[3]:.0f}, next row's facts {parts[4]:.0f}, sync and "
+              f"copy {parts[5]:.0f}), {(walk / c[ok, 4]).mean():.1f} a walk "
+              f"step")
+    rk, od, pr, npr = (t.cpu().numpy() for t in (rank, order, pred, npred))
+    back = []
+    for w in np.flatnonzero(live)[:64]:
+        for r in range(int(nc[w])):
+            u = od[w, r]
+            back += [r - rk[w, q] for q in pr[w, u, :min(npr[w, u], P)]
+                     if 0 <= q < N]
+    back = np.array(back)
+    print(f"{tag}: preds this many ranks back (64 windows, {len(back)} "
+          f"preds): " + ", ".join(f"<= {k}: {np.mean(back <= k):.4f}"
+                                  for k in (1, 2, 4, 8)) +
+          f"; the most {back.max()}")
+
+
+def nwtb_split_main() -> int:
+    """``--nwtb-split``: split_measure at the deep, correction and MSA
+    shapes (this script's data and seed)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    lib = split_build()
+    split_measure(lib, "deep", POA_DEEP, N_POA_DEEP, 256, 12, True)
+    split_measure(lib, "correction", POA_CORR, N_POA, 128, 6, False)
+    split_measure(lib, "msa", POA_MSA, N_POA, 100, 5, False)
+    return 0
+
+
+TURNS_ROUNDS, TURNS_REPS = 5, 5
+#: the parent's launchers (before the device-memory variants took a scratch
+#: pointer and B3 its lane plan)
+_TP, _TI = ctypes.c_void_p, ctypes.c_int
+TURNS_PARENT_SIGNATURES = {
+    "cga_nw_diag": (_TP,) * 6 + (_TI,) * 6 + (_TP,),
+    "cga_nw_row": (_TP,) * 6 + (_TI,) * 6 + (_TP,),
+    "cga_poa_topsort": (_TP,) * 8 + (_TI,) * 3 + (_TP,),
+    "cga_poa_consensus": (_TP,) * 10 + (_TI,) * 4 + (_TP,),
+}
+
+
+def turns_parent_lib(parent: str) -> ctypes.CDLL:
+    import importlib.util
+    path = os.path.join(parent, "claragenomicsanalysis_tpu_torch", "ops",
+                        "_build.py")
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = ctypes.CDLL(str(mod.build()))
+    for name, argtypes in TURNS_PARENT_SIGNATURES.items():
+        getattr(lib, name).argtypes = list(argtypes)
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def turns_ptrs(*ts):
+    return [t.data_ptr() for t in ts]
+
+
+def turns_stream():
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def turns_checked(name, err):
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def turns_banded_inputs(B=449, L=10_000, r=72, seed=SEED):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (B, L), dtype=np.int8)
+    t = np.full((B, L + 8), -1, np.int8)
+    tlen = np.zeros(B, np.int32)
+    for b in range(B):
+        s = q[b].copy()
+        sub = rng.random(L) < 0.01
+        s[sub] = (s[sub] + 1) % 4
+        s = np.delete(s, rng.choice(L, 20, replace=False))
+        s = np.insert(s, rng.choice(len(s), 24), rng.integers(0, 4, 24))
+        t[b, :len(s)] = s
+        tlen[b] = len(s)
+    qlen = np.full(B, L, np.int32)
+    return [torch.from_numpy(a).cuda() for a in (q, qlen, t, tlen)], r
+
+
+def turns_banded_pairs(cur, par):
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row
+    (q, qlen, t, tlen), r = turns_banded_inputs()
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    out = []
+    assert nw_diag.nw_diag_variant(Lq, Lt, r) == "shared"
+    Wd, Dpad = nw_diag.band_slots(r), nw_diag.padded_diagonals(Lq, Lt)
+    sd = [torch.empty(B, dtype=torch.int32, device="cuda"),
+          torch.empty((Dpad // 4, B, Wd), dtype=torch.int8, device="cuda")]
+    sd2 = [torch.empty_like(x) for x in sd]
+
+    def diag_cur():
+        err = cur.cga_nw_diag(*turns_ptrs(q, qlen, t, tlen, *sd), None, B, Lq,
+                              Lt, r, Wd, Dpad, turns_stream())
+        turns_checked("nw_diag", err)
+        return sd
+
+    def diag_par():
+        err = par.cga_nw_diag(*turns_ptrs(q, qlen, t, tlen, *sd2), B, Lq, Lt,
+                              r, Wd, Dpad, turns_stream())
+        turns_checked("nw_diag", err)
+        return sd2
+
+    out.append((f"B1 nw_diag B={B} Lq={Lq} r={r}", diag_cur, diag_par))
+    variant, cpt, groups, _ = nw_row.nw_row_plan(Lq, Lt, r)
+    assert variant == "shared"
+    Wr, R4 = nw_row.band_width_row(r), nw_row.tb_rows(Lq)
+    sr = [torch.empty(B, dtype=torch.int32, device="cuda"),
+          torch.empty((R4, B, Wr), dtype=torch.int8, device="cuda")]
+    sr2 = [torch.empty_like(x) for x in sr]
+
+    def row_cur():
+        err = cur.cga_nw_row(*turns_ptrs(q, qlen, t, tlen, *sr), None, B, Lq,
+                             Lt, r, Wr, R4, cpt, groups, turns_stream())
+        turns_checked("nw_row", err)
+        return sr
+
+    def row_par():
+        err = par.cga_nw_row(*turns_ptrs(q, qlen, t, tlen, *sr2), B, Lq, Lt, r,
+                             Wr, R4, turns_stream())
+        turns_checked("nw_row", err)
+        return sr2
+
+    out.append((f"B3 nw_row B={B} Lq={Lq} r={r}", row_cur, row_par))
+    return out
+
+
+def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded):
+    """B7 and B8 at the last launch of a lockstep run of these windows."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             PoaScores)
+    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus,
+                                                     poa_topsort, poa_window)
+    seen = {}
+    orig = {k: getattr(poa_window, k) for k in ("topsort", "consensus")}
+
+    def spy(k):
+        def run(*args):
+            seen[k] = args
+            return orig[k](*args)
+        return run
+
+    bs = BatchSize(**cfg)
+    S, L = bs.max_sequences_per_poa, bs.padded_seq
+    _, _, arrays = poa_window_arrays(n, blen, S, edits, L,
+                                        SEED + 20 + S)
+    for k in orig:
+        setattr(poa_window, k, spy(k))
+    try:
+        poa_window.run_windows(bs, PoaScores(), banded,
+                               *(torch.as_tensor(a).cuda() for a in arrays))
+    finally:
+        for k, f in orig.items():
+            setattr(poa_window, k, f)
+    level, npred, pred, nc = (x.contiguous() for x in seen["topsort"])
+    W, N, P = pred.shape
+    assert poa_topsort.topsort_variant(N, P) == "shared"
+    ts = [torch.empty_like(level) for _ in range(3)] + [
+        torch.empty(W, dtype=torch.int32, device="cuda")]
+    ts2 = [torch.empty_like(x) for x in ts]
+
+    def topo_cur():
+        err = cur.cga_poa_topsort(*turns_ptrs(level, npred, pred, nc, *ts),
+                                  None, W, N, P, turns_stream())
+        turns_checked("topsort", err)
+        return ts
+
+    def topo_par():
+        err = par.cga_poa_topsort(*turns_ptrs(level, npred, pred, nc, *ts2), W,
+                                  N, P, turns_stream())
+        turns_checked("topsort", err)
+        return ts2
+
+    *cin, MC = seen["consensus"]
+    cin = [x.contiguous() for x in cin]
+    assert poa_consensus.consensus_variant(N, P, MC) == "shared"
+    co = [torch.empty((W, MC), dtype=torch.int32, device="cuda")
+          for _ in range(2)] + [torch.empty(W, dtype=torch.int32,
+                                            device="cuda")]
+    co2 = [torch.empty_like(x) for x in co]
+
+    def cons_cur():
+        err = cur.cga_poa_consensus(*turns_ptrs(*cin, *co), None, W, N, P, MC,
+                                    turns_stream())
+        turns_checked("consensus", err)
+        return co
+
+    def cons_par():
+        err = par.cga_poa_consensus(*turns_ptrs(*cin, *co2), W, N, P, MC,
+                                    turns_stream())
+        turns_checked("consensus", err)
+        return co2
+
+    shape = f"W={W} N={N} P={P}"
+    return [(f"B7 poa_topsort {tag} {shape}", topo_cur, topo_par),
+            (f"B8 poa_consensus {tag} {shape} MC={MC}", cons_cur, cons_par)]
+
+
+def kernel_turns_main(parent: str) -> int:
+    """``--turns PARENT_DIR``: each kernel of this checkout and of
+    PARENT_DIR's build on the same inputs, outputs checked equal, then
+    timed in turns."""
+    import statistics
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    cur, par = _build.load(), turns_parent_lib(parent)
+    pairs = turns_banded_pairs(cur, par)
+    pairs += turns_poa_pairs(cur, par, "correction", POA_CORR, N_POA, 128,
+                             6, False)
+    pairs += turns_poa_pairs(cur, par, "deep", POA_DEEP, N_POA_DEEP, 256,
+                             12, True)
+    pairs += turns_poa_pairs(cur, par, "msa", POA_MSA, N_POA, 100, 5,
+                             False)
+    for name, fc, fp in pairs:
+        a, b = fc(), fp()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"{name}: the two builds disagree")
+        fc(), fp()  # warm
+        ms = {"parent": [], "this": []}
+        for _ in range(TURNS_ROUNDS):
+            for who, f in (("parent", fp), ("this", fc), ("this", fc),
+                           ("parent", fp)):
+                ms[who].append(cuda_ms(f, TURNS_REPS)[0])
+        mp, mc = (statistics.median(ms[k]) for k in ("parent", "this"))
+        print(f"{name}: parent {mp:.4f} ms, this {mc:.4f} ms "
+              f"({(mc / mp - 1) * 100:+.1f} %), outputs equal; samples "
+              f"parent {[round(x, 4) for x in ms['parent']]}, this "
+              f"{[round(x, 4) for x in ms['this']]}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--nwtb-split"]:
+        sys.exit(nwtb_split_main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--turns":
+        sys.exit(kernel_turns_main(sys.argv[2]))
+    if len(sys.argv) > 1:
+        sys.exit("usage: python3 chip_smoke.py [--nwtb-split | --turns "
+                 "PARENT_DIR]")
     sys.exit(main())

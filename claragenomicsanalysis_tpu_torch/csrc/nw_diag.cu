@@ -40,33 +40,59 @@
 //
 // Many problems run at once (one block each, a few KB of shared memory per
 // block), which is what fills the card's 132 SMs.
+//
+// Two variants of the one kernel body (template kShared), chosen by the
+// wrapper from the shapes (ops/nw_diag.py nw_diag_smem_bytes): the shared
+// variant keeps both diagonals, the code bytes and q and t in shared memory,
+// 9W + Lq + Lt bytes a block; past the 227 KB a block can have (wide bands
+// of pairs whose lengths differ by more than 16,384, or long reads) the
+// device variant keeps the diagonals and code bytes in a scratch slice of
+// 9W bytes a problem that the wrapper allocates, and reads q and t through
+// the read-only cache (__ldg).  The rules are the same code.
 
 #include "common.cuh"
 
 namespace {
 
+// a base of q or t: staged in shared memory, or read through L1
+template <bool kShared>
+__device__ __forceinline__ int base_at(const int8_t* s, int p) {
+  if constexpr (kShared) return s[p];
+  return __ldg(s + p);
+}
+
+template <bool kShared>
 __global__ void nw_diag_kernel(const int8_t* __restrict__ q,
                                const int32_t* __restrict__ qlens,
                                const int8_t* __restrict__ t,
                                const int32_t* __restrict__ tlens,
                                int32_t* __restrict__ scores,
-                               uint8_t* __restrict__ tb, int B, int Lq, int Lt,
-                               int r, int W, int Dpad) {
+                               uint8_t* __restrict__ tb,
+                               unsigned char* __restrict__ scratch, int B,
+                               int Lq, int Lt, int r, int W, int Dpad) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* prev1 = reinterpret_cast<int32_t*>(smem);  // diagonal d - 1
-  int32_t* prev2 = prev1 + W;                         // diagonal d - 2
-  uint8_t* acc = reinterpret_cast<uint8_t*>(prev2 + W);
-  int8_t* qs = reinterpret_cast<int8_t*>(acc + W);
-  int8_t* ts = qs + Lq;
-
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  // two int32 diagonals and a code byte per slot: shared memory, or this
+  // problem's 9W bytes of the device scratch
+  unsigned char* area = kShared ? smem : scratch + (size_t)b * 9 * W;
+  int32_t* prev1 = reinterpret_cast<int32_t*>(area);  // diagonal d - 1
+  int32_t* prev2 = prev1 + W;                         // diagonal d - 2
+  uint8_t* acc = reinterpret_cast<uint8_t*>(prev2 + W);
+  const int8_t* qs = q + (size_t)b * Lq;
+  const int8_t* ts = t + (size_t)b * Lt;
+  if constexpr (kShared) {
+    int8_t* qsh = reinterpret_cast<int8_t*>(acc + W);
+    int8_t* tsh = qsh + Lq;
+    for (int p = tid; p < Lq; p += nt) qsh[p] = qs[p];
+    for (int p = tid; p < Lt; p += nt) tsh[p] = ts[p];
+    qs = qsh;
+    ts = tsh;
+  }
   const int qlen = qlens[b];
   const int tlen = tlens[b];
 
-  for (int p = tid; p < Lq; p += nt) qs[p] = q[(size_t)b * Lq + p];
-  for (int p = tid; p < Lt; p += nt) ts[p] = t[(size_t)b * Lt + p];
   for (int u = tid; u < W; u += nt) {
     prev1[u] = cga::kInf;
     prev2[u] = cga::kInf;
@@ -93,8 +119,8 @@ __global__ void nw_diag_kernel(const int8_t* __restrict__ q,
       const bool valid =
           i >= 0 && i <= qlen && j >= 0 && j <= tlen && u <= r - par;
       // an unknown base (N, code -1) never matches, not even another N
-      const int qc = (i >= 1 && i <= Lq) ? qs[i - 1] : -1;
-      const int tc = (j >= 1 && j <= Lt) ? ts[j - 1] : -1;
+      const int qc = (i >= 1 && i <= Lq) ? base_at<kShared>(qs, i - 1) : -1;
+      const int tc = (j >= 1 && j <= Lt) ? base_at<kShared>(ts, j - 1) : -1;
       const int sub = (qc == tc && qc >= 0) ? 0 : 1;
       int up, left;
       if (par) {
@@ -135,26 +161,35 @@ __global__ void nw_diag_kernel(const int8_t* __restrict__ q,
 // Launches the kernel on `stream` and returns cudaGetLastError() as an int
 // (0 is success).  q (B, Lq) and t (B, Lt) are int8 codes with -1 PAD,
 // qlen and tlen (B,) int32, scores (B,) int32, tb (Dpad / 4, B, W) int8.
+// scratch is null for the shared variant; for the device variant it holds
+// 9W bytes a problem.
 extern "C" int cga_nw_diag(const void* q, const void* qlen, const void* t,
-                           const void* tlen, void* scores, void* tb, int B,
-                           int Lq, int Lt, int r, int W, int Dpad,
-                           void* stream) {
+                           const void* tlen, void* scores, void* tb,
+                           void* scratch, int B, int Lq, int Lt, int r, int W,
+                           int Dpad, void* stream) {
   const int warps = (W + 31) / 32;
   const int threads = warps > 32 ? 1024 : 32 * warps;
-  // two int32 diagonals and a byte of codes per slot, then q and t; above
-  // 227 KB the attribute call fails and the error is returned
+  auto args = [&](auto kernel, size_t smem) {
+    kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+        static_cast<const int8_t*>(q), static_cast<const int32_t*>(qlen),
+        static_cast<const int8_t*>(t), static_cast<const int32_t*>(tlen),
+        static_cast<int32_t*>(scores), static_cast<uint8_t*>(tb),
+        static_cast<unsigned char*>(scratch), B, Lq, Lt, r, W, Dpad);
+  };
+  if (scratch != nullptr) {
+    args(nw_diag_kernel<false>, 0);
+    return (int)cudaGetLastError();
+  }
+  // two int32 diagonals and a byte of codes per slot, then q and t (the
+  // wrapper picks this variant only where they fit a block)
   const long long smem = 9LL * W + Lq + Lt;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nw_diag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nw_diag_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  nw_diag_kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const int32_t*>(qlen),
-      static_cast<const int8_t*>(t), static_cast<const int32_t*>(tlen),
-      static_cast<int32_t*>(scores), static_cast<uint8_t*>(tb), B, Lq, Lt, r,
-      W, Dpad);
+  args(nw_diag_kernel<true>, (size_t)smem);
   return (int)cudaGetLastError();
 }
 

@@ -48,7 +48,19 @@
 // word) and stored once every four rows.  A problem stops at its own last
 // packed row (round_up(qlen, 4)) and writes zeros to the rows it does not
 // reach; the plain PyTorch version in ops/nw_row.py defines the same output.
-// wgmma, TMA and several problems per block are later work.
+//
+// Two variants of the one kernel body (template kShared), chosen by the
+// wrapper from the shapes (ops/nw_row.py nw_row_plan): the shared variant
+// keeps the row, q and t in shared memory, 4 (W + 1) + Lq + Lt bytes
+// beside the 128 of the warp totals; past the 227 KB a block can have (the
+// W = 65,672 of pairs whose lengths differ by more than 16,384, or long
+// reads) the device variant keeps the row in a scratch slice of 4 (W + 1)
+// bytes a problem, reads q and t through L1 (__ldg) and ORs each row's
+// codes into the traceback byte in device memory.  A thread owns CPT x G
+// contiguous lanes (CPT = 1, 2, 4 or 8), G lane groups of CPT: G = 1 in the
+// shared variant, which keeps a lane's codes in registers and so takes
+// W <= 8,192; the device variant takes any width.  wgmma, TMA and several problems per block are
+// later work.
 
 #include <climits>
 
@@ -57,6 +69,13 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+
+// a base of q or t: staged in shared memory, or read through L1
+template <bool kShared>
+__device__ __forceinline__ int base_at(const int8_t* s, int p) {
+  if constexpr (kShared) return s[p];
+  return __ldg(s + p);
+}
 
 __device__ __forceinline__ int warp_scan_min(int v, int lane) {
 #pragma unroll
@@ -81,6 +100,7 @@ struct Cell {
   bool valid;
 };
 
+template <bool kShared>
 __device__ __forceinline__ Cell cell(int i, int k, int pd, int pu, int qc,
                                      const int8_t* ts, int Lt, int r,
                                      int qlen, int tlen) {
@@ -88,7 +108,7 @@ __device__ __forceinline__ Cell cell(int i, int k, int pd, int pu, int qc,
   Cell c;
   c.valid = j >= 0 && j <= tlen && i <= qlen && k <= 2 * r;
   // an unknown base (N, code -1) never matches, not even another N
-  const int tc = (j >= 1 && j <= Lt) ? ts[j - 1] : -1;
+  const int tc = (j >= 1 && j <= Lt) ? base_at<kShared>(ts, j - 1) : -1;
   c.sub = (qc == tc && qc >= 0) ? 0 : 1;
   c.diag = pd + c.sub;
   int tmp = min(c.diag, pu + 1);
@@ -103,20 +123,19 @@ __device__ __forceinline__ int move_code(int cur, int diag, int sub,
                        : (cur == left + 1 ? cga::kDeletion : cga::kInsertion);
 }
 
-template <int CPT>
-__global__ void nw_row_kernel(const int8_t* __restrict__ q,
-                              const int32_t* __restrict__ qlens,
-                              const int8_t* __restrict__ t,
-                              const int32_t* __restrict__ tlens,
-                              int32_t* __restrict__ scores,
-                              uint8_t* __restrict__ tb, int B, int Lq, int Lt,
-                              int r, int W, int R4) {
+template <int CPT, bool kShared>
+__device__ __forceinline__ void nw_row_body(
+    const int8_t* __restrict__ q, const int32_t* __restrict__ qlens,
+    const int8_t* __restrict__ t, const int32_t* __restrict__ tlens,
+    int32_t* __restrict__ scores, uint8_t* __restrict__ tb,
+    int32_t* __restrict__ scratch, int B, int Lq, int Lt, int r, int W,
+    int R4, int G) {
   constexpr int kWords = (CPT + 3) / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* row = reinterpret_cast<int32_t*>(smem);  // W lanes + INF at W
-  int32_t* wtot = row + W + 1;                        // a total per warp
-  int8_t* qs = reinterpret_cast<int8_t*>(wtot + 32);
-  int8_t* ts = qs + Lq;
+  // a total per warp: in the shared variant right after the row, where the
+  // dynamic block has always kept it (a static array there ran 3-4 % slower
+  // on an H100), else a static array
+  __shared__ int32_t wtot_static[32];
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -125,10 +144,28 @@ __global__ void nw_row_kernel(const int8_t* __restrict__ q,
   const int wid = tid >> 5;
   const int qlen = qlens[b];
   const int tlen = tlens[b];
-  const int k0 = tid * CPT;
+  // the previous row, W lanes + INF at W: shared memory, or this problem's
+  // slice of the device scratch
+  int32_t* row = kShared ? reinterpret_cast<int32_t*>(smem)
+                         : scratch + (size_t)b * (W + 1);
+  const int8_t* qs = q + (size_t)b * Lq;
+  const int8_t* ts = t + (size_t)b * Lt;
+  int32_t* wtot = kShared ? row + W + 1 : wtot_static;
+  if constexpr (kShared) {
+    int8_t* qsh = reinterpret_cast<int8_t*>(wtot + 32);
+    int8_t* tsh = qsh + Lq;
+    for (int p = tid; p < Lq; p += nt) qsh[p] = qs[p];
+    for (int p = tid; p < Lt; p += nt) tsh[p] = ts[p];
+    qs = qsh;
+    ts = tsh;
+  }
+  // lane groups of CPT lanes a thread: one in the shared variant, where
+  // every lane index and neighbour test below is then a compile-time
+  // expression of c, as in a kernel without groups
+  const int groups = kShared ? 1 : G;
+  const int span = CPT * groups;  // contiguous lanes this thread owns
+  const int k0 = tid * span;
 
-  for (int p = tid; p < Lq; p += nt) qs[p] = q[(size_t)b * Lq + p];
-  for (int p = tid; p < Lt; p += nt) ts[p] = t[(size_t)b * Lt + p];
   for (int k = tid; k <= W; k += nt) {
     const int j = k - r;  // row 0: D[0, j] = j inside the band
     row[k] = (k < W && j >= 0 && j <= tlen && k <= 2 * r) ? j : cga::kInf;
@@ -145,19 +182,27 @@ __global__ void nw_row_kernel(const int8_t* __restrict__ q,
   __syncthreads();
 
   for (int i = 1; i <= rows_end; ++i) {
-    const int qc = (i <= Lq) ? qs[i - 1] : -1;
+    const int qc = (i <= Lq) ? base_at<kShared>(qs, i - 1) : -1;
     const int shift = 2 * ((i - 1) & 3);
+    // the traceback row of this query row's byte (the shared variant
+    // computes it only where it stores, every fourth row)
+    const auto tb_row = [&]() {
+      return tb + ((size_t)((i - 1) >> 2) * B + b) * W;
+    };
 
     // pass 1: the thread's minimum of tmp - k over its lanes
     int mine = INT_MAX;
     int pd = (k0 < W) ? row[k0] : cga::kInf;
+    for (int g = 0; g < (kShared ? 1 : groups); ++g) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int k = k0 + c;
-      if (k < W) {
-        const int pu = row[k + 1];
-        mine = min(mine, cell(i, k, pd, pu, qc, ts, Lt, r, qlen, tlen).tmp - k);
-        pd = pu;
+      for (int c = 0; c < CPT; ++c) {
+        const int k = kShared ? k0 + c : k0 + g * CPT + c;
+        if (k < W) {
+          const int pu = row[k + 1];
+          mine = min(mine, cell<kShared>(i, k, pd, pu, qc, ts, Lt, r, qlen,
+                                         tlen).tmp - k);
+          pd = pu;
+        }
       }
     }
     const int pu_last = pd;  // the right neighbour's first previous value
@@ -172,48 +217,65 @@ __global__ void nw_row_kernel(const int8_t* __restrict__ q,
     int run = min(carry, excl);
     int left = cga::kInf, cur0 = cga::kInf, diag0 = 0, sub0 = 0;
     pd = (k0 < W) ? row[k0] : cga::kInf;
+    for (int g = 0; g < (kShared ? 1 : groups); ++g) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int k = k0 + c;
-      if (k < W) {
-        const int pu = (c + 1 < CPT) ? row[k + 1] : pu_last;
-        const Cell x = cell(i, k, pd, pu, qc, ts, Lt, r, qlen, tlen);
-        run = min(run, x.tmp - k);
-        const int cur = x.valid ? run + k : cga::kInf;
-        if (c == 0) {
-          cur0 = cur;
-          diag0 = x.diag;
-          sub0 = x.sub;
-        } else {
-          acc[c >> 2] |= (uint32_t)move_code(cur, x.diag, x.sub, left)
-                         << (8 * (c & 3) + shift);
+      for (int c = 0; c < CPT; ++c) {
+        const int k = kShared ? k0 + c : k0 + g * CPT + c;
+        if (k < W) {
+          const bool inner = kShared ? c + 1 < CPT : k + 1 < k0 + span;
+          const int pu = inner ? row[k + 1] : pu_last;
+          const Cell x =
+              cell<kShared>(i, k, pd, pu, qc, ts, Lt, r, qlen, tlen);
+          run = min(run, x.tmp - k);
+          const int cur = x.valid ? run + k : cga::kInf;
+          if (kShared ? c == 0 : k == k0) {
+            cur0 = cur;
+            diag0 = x.diag;
+            sub0 = x.sub;
+          } else {
+            const uint32_t code = move_code(cur, x.diag, x.sub, left);
+            if constexpr (kShared)
+              acc[c >> 2] |= code << (8 * (c & 3) + shift);
+            else {
+              uint8_t* out = tb_row();
+              out[k] = (uint8_t)((shift ? out[k] : 0) | (code << shift));
+            }
+          }
+          if (i == qlen && k == kf && band_ok) scores[b] = cur;
+          row[k] = cur;
+          left = cur;
+          pd = pu;
         }
-        if (i == qlen && k == kf && band_ok) scores[b] = cur;
-        row[k] = cur;
-        left = cur;
-        pd = pu;
       }
     }
     __syncthreads();
 
     if (k0 < W) {
       const int left0 = (k0 > 0) ? row[k0 - 1] : cga::kInf;
-      acc[0] |= (uint32_t)move_code(cur0, diag0, sub0, left0) << shift;
-    }
-    if (shift == 6) {
-      uint8_t* out = tb + ((size_t)((i - 1) >> 2) * B + b) * W;
-      if constexpr (CPT >= 4) {  // k0 and W are multiples of 4: whole words
-#pragma unroll
-        for (int w = 0; w < kWords; ++w)
-          if (k0 + 4 * w < W)
-            reinterpret_cast<uint32_t*>(out + k0)[w] = acc[w];
+      const uint32_t code = move_code(cur0, diag0, sub0, left0);
+      if constexpr (kShared) {
+        acc[0] |= code << shift;
       } else {
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          if (k0 + c < W) out[k0 + c] = (uint8_t)(acc[0] >> (8 * c));
+        uint8_t* out = tb_row();
+        out[k0] = (uint8_t)((shift ? out[k0] : 0) | (code << shift));
       }
+    }
+    if constexpr (kShared) {
+      if (shift == 6) {
+        uint8_t* out = tb_row();
+        if constexpr (CPT >= 4) {  // k0 and W are multiples of 4: words
 #pragma unroll
-      for (int w = 0; w < kWords; ++w) acc[w] = 0;
+          for (int w = 0; w < kWords; ++w)
+            if (k0 + 4 * w < W)
+              reinterpret_cast<uint32_t*>(out + k0)[w] = acc[w];
+        } else {
+#pragma unroll
+          for (int c = 0; c < CPT; ++c)
+            if (k0 + c < W) out[k0 + c] = (uint8_t)(acc[0] >> (8 * c));
+        }
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) acc[w] = 0;
+      }
     }
   }
 
@@ -221,26 +283,55 @@ __global__ void nw_row_kernel(const int8_t* __restrict__ q,
     for (int k = tid; k < W; k += nt) tb[((size_t)rr * B + b) * W + k] = 0;
 }
 
+#define NW_ROW_PARAMS                                                        \
+  const int8_t *__restrict__ q, const int32_t *__restrict__ qlens,           \
+      const int8_t *__restrict__ t, const int32_t *__restrict__ tlens,       \
+      int32_t *__restrict__ scores, uint8_t *__restrict__ tb,                \
+      int32_t *__restrict__ scratch, int B, int Lq, int Lt, int r, int W,    \
+      int R4, int G
+
+template <int CPT>
+__global__ void nw_row_shared(NW_ROW_PARAMS) {
+  nw_row_body<CPT, true>(q, qlens, t, tlens, scores, tb, scratch, B, Lq, Lt,
+                         r, W, R4, G);
+}
+
+// the device variant runs up to 1,024 threads at any width: bound its
+// registers so that such a block always fits an SM
+template <int CPT>
+__global__ void __launch_bounds__(kMaxThreads) nw_row_device(NW_ROW_PARAMS) {
+  nw_row_body<CPT, false>(q, qlens, t, tlens, scores, tb, scratch, B, Lq,
+                          Lt, r, W, R4, G);
+}
+
 template <int CPT>
 int launch(const void* q, const void* qlen, const void* t, const void* tlen,
-           void* scores, void* tb, int B, int Lq, int Lt, int r, int W,
-           int R4, cudaStream_t stream) {
-  const int warps = ((W + CPT - 1) / CPT + 31) / 32;
-  const int threads = 32 * warps;
-  // the row (W + 1 int32), the warp totals, then q and t; above 227 KB the
-  // attribute call fails and the error is returned
-  const long long smem = 4LL * (W + 1) + 4 * 32 + Lq + Lt;
+           void* scores, void* tb, void* scratch, int B, int Lq, int Lt,
+           int r, int W, int R4, int G, cudaStream_t stream) {
+  const int span = CPT * G;
+  const int threads = ((W + span - 1) / span + 31) / 32 * 32;
+  if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
+  auto go = [&](auto kernel, size_t smem) {
+    kernel<<<B, threads, smem, stream>>>(
+        static_cast<const int8_t*>(q), static_cast<const int32_t*>(qlen),
+        static_cast<const int8_t*>(t), static_cast<const int32_t*>(tlen),
+        static_cast<int32_t*>(scores), static_cast<uint8_t*>(tb),
+        static_cast<int32_t*>(scratch), B, Lq, Lt, r, W, R4, G);
+  };
+  if (scratch != nullptr) {
+    go(nw_row_device<CPT>, 0);
+    return (int)cudaGetLastError();
+  }
+  // the row (W + 1 int32), the warp totals, then q and t (the wrapper
+  // picks this variant only where the whole fits a block)
+  const long long smem = 4LL * (W + 1) + 128 + Lq + Lt;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nw_row_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nw_row_shared<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  nw_row_kernel<CPT><<<B, threads, (size_t)smem, stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const int32_t*>(qlen),
-      static_cast<const int8_t*>(t), static_cast<const int32_t*>(tlen),
-      static_cast<int32_t*>(scores), static_cast<uint8_t*>(tb), B, Lq, Lt, r,
-      W, R4);
+  go(nw_row_shared<CPT>, (size_t)smem);
   return (int)cudaGetLastError();
 }
 
@@ -249,25 +340,30 @@ int launch(const void* q, const void* qlen, const void* t, const void* tlen,
 // Launches the kernel on `stream` and returns cudaGetLastError() as an int
 // (0 is success).  q (B, Lq) and t (B, Lt) are int8 codes with -1 PAD,
 // qlen and tlen (B,) int32, scores (B,) int32, tb (R4, B, W) int8 with
-// R4 = round_up(Lq, 16) / 4 and W = round_up(2r + 1, 8).
+// R4 = round_up(Lq, 16) / 4 and W = round_up(2r + 1, 8).  A thread owns
+// cpt x groups lanes (cpt 1, 2, 4 or 8; groups 1 for the shared variant); scratch is null for the shared variant and holds 4 (W + 1)
+// bytes a problem for the device variant.
 extern "C" int cga_nw_row(const void* q, const void* qlen, const void* t,
-                          const void* tlen, void* scores, void* tb, int B,
-                          int Lq, int Lt, int r, int W, int R4,
-                          void* stream) {
+                          const void* tlen, void* scores, void* tb,
+                          void* scratch, int B, int Lq, int Lt, int r, int W,
+                          int R4, int cpt, int groups, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (W <= 1 * kMaxThreads)
-    return launch<1>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
-  if (W <= 2 * kMaxThreads)
-    return launch<2>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
-  if (W <= 4 * kMaxThreads)
-    return launch<4>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
-  if (W <= 8 * kMaxThreads)
-    return launch<8>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
-  if (W <= 16 * kMaxThreads)
-    return launch<16>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
-  if (W <= 32 * kMaxThreads)
-    return launch<32>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
-  if (W <= 64 * kMaxThreads)
-    return launch<64>(q, qlen, t, tlen, scores, tb, B, Lq, Lt, r, W, R4, s);
-  return (int)cudaErrorInvalidValue;  // a band no block can hold
+  if (groups < 1 || (scratch == nullptr && groups != 1))
+    return (int)cudaErrorInvalidValue;
+  switch (cpt) {
+    case 1:
+      return launch<1>(q, qlen, t, tlen, scores, tb, scratch, B, Lq, Lt, r,
+                       W, R4, groups, s);
+    case 2:
+      return launch<2>(q, qlen, t, tlen, scores, tb, scratch, B, Lq, Lt, r,
+                       W, R4, groups, s);
+    case 4:
+      return launch<4>(q, qlen, t, tlen, scores, tb, scratch, B, Lq, Lt, r,
+                       W, R4, groups, s);
+    case 8:
+      return launch<8>(q, qlen, t, tlen, scores, tb, scratch, B, Lq, Lt, r,
+                       W, R4, groups, s);
+    default:
+      return (int)cudaErrorInvalidValue;  // not an instantiated width
+  }
 }

@@ -48,25 +48,27 @@ _CHARS = np.frombuffer((BASES + "N").encode(), dtype=np.uint8)
 _MSA_CHARS = np.frombuffer((BASES + "-").encode(), dtype=np.uint8)
 
 
-def window_bytes(bs: BatchSize, msa: bool = False) -> int:
+def window_bytes(bs: BatchSize, msa: bool = False,
+                 scores: PoaScores | None = None) -> int:
     """Device bytes one window holds during a launch, by either route: the
-    graph NW's score plane, two copies of the graph state (the add writes a
-    new one), the path and the window's sequences; with the MSA also the two
-    states' ``paths`` and the rows."""
+    graph NW's score plane (in the lockstep kernel's words for these
+    scores), two copies of the graph state (the add writes a new one), the
+    path and the window's sequences; with the MSA also the two states'
+    ``paths`` and the rows."""
     N, L, S = bs.padded_nodes, bs.padded_seq, bs.max_sequences_per_poa
     P, A = bs.max_pred_per_node, bs.max_aligned_per_node
     state = 4 * N * (6 + 2 * P + A)
-    total = plane_bytes(N, L) + 2 * state + 8 * (N + L) + 8 * S * L
+    total = plane_bytes(N, L, scores) + 2 * state + 8 * (N + L) + 8 * S * L
     if msa:
         total += 2 * 4 * S * L + 4 * S * N
     return total
 
 
-def launch_chunks(n_windows: int, bs: BatchSize,
-                  msa: bool = False) -> list[range]:
+def launch_chunks(n_windows: int, bs: BatchSize, msa: bool = False,
+                  scores: PoaScores | None = None) -> list[range]:
     """Windows 0..n_windows-1 cut into successive launches, each within
     POA_MEM_BUDGET (a launch holds at least one window)."""
-    n = max(1, POA_MEM_BUDGET // window_bytes(bs, msa))
+    n = max(1, POA_MEM_BUDGET // window_bytes(bs, msa, scores))
     return [range(s, min(s + n, n_windows)) for s in range(0, n_windows, n)]
 
 
@@ -169,7 +171,8 @@ class Batch:
         the batch's device."""
         arrays = [torch.from_numpy(a).to(self.device)
                   for a in self._pack_arrays()]
-        for c in launch_chunks(len(self._groups), self.batch_size, self._msa):
+        for c in launch_chunks(len(self._groups), self.batch_size, self._msa,
+                               self.scores):
             yield tuple(a[c.start:c.stop] for a in arrays)
 
     def generate_poa(self) -> None:

@@ -27,19 +27,24 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
+#: dynamic shared memory one block can have on Hopper (227 KB); a kernel's
+#: shared-memory variant runs only where its bytes fit, its device-memory
+#: variant elsewhere
+SMEM_PER_BLOCK = 232_448
+
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 #: argtypes of every launcher: a pointer or the stream is c_void_p, an int
 #: c_int (ctypes would otherwise pass a pointer as a 32-bit int)
 SIGNATURES = {
-    "cga_nw_diag": (_PTR,) * 6 + (_INT,) * 6 + (_PTR,),
+    "cga_nw_diag": (_PTR,) * 7 + (_INT,) * 6 + (_PTR,),
     "cga_tb_decode_diag": (_PTR,) * 5 + (_INT,) * 5 + (_PTR,),
-    "cga_nw_row": (_PTR,) * 6 + (_INT,) * 6 + (_PTR,),
+    "cga_nw_row": (_PTR,) * 7 + (_INT,) * 8 + (_PTR,),
     "cga_tb_decode_row": (_PTR,) * 5 + (_INT,) * 5 + (_PTR,),
-    "cga_myers": (_PTR,) * 6 + (_INT,) * 4 + (_PTR,),
-    "cga_poa_topsort": (_PTR,) * 8 + (_INT,) * 3 + (_PTR,),
-    "cga_poa_nwtb": (_PTR,) * 15 + (_INT,) * 8 + (_PTR,),
+    "cga_myers": (_PTR,) * 7 + (_INT,) * 5 + (_PTR,),
+    "cga_poa_topsort": (_PTR,) * 9 + (_INT,) * 3 + (_PTR,),
+    "cga_poa_nwtb": (_PTR,) * 15 + (_INT,) * 13 + (_PTR,),
     "cga_poa_add": (_PTR,) * 17 + (_INT,) * 8 + (_PTR,),
-    "cga_poa_consensus": (_PTR,) * 10 + (_INT,) * 4 + (_PTR,),
+    "cga_poa_consensus": (_PTR,) * 11 + (_INT,) * 4 + (_PTR,),
     "cga_poa_msa": (_PTR,) * 10 + (_INT,) * 6 + (_PTR,),
     "cga_poa_window": (_PTR,) * 14 + (_INT,) * 13 + (_PTR,),
 }

@@ -12,11 +12,16 @@ The caller names the kernel (``create_aligner(..., kernel=)``), and each
 kernel's traceback goes to its own layout's decoder: the layout is never
 guessed from the array's shape.  The JAX package also falls back from one
 kernel to the other, or to an XLA scan, for radii below 4 and for buckets
-whose blocks overflow the TPU's scoped VMEM; a Hopper block has no such
-limit at these shapes, so the port has no fallback.
+whose blocks overflow the TPU's scoped VMEM.  A Hopper block has a limit
+too, 227 KB of shared memory, which wide bands pass (a pair whose lengths
+differ by more than 16,384, a Hirschberg base case against a long target,
+long reads): each kernel then runs its device-memory variant, chosen from
+the shapes by ``nw_diag_variant`` / ``nw_row_plan``, never by catching an
+error.  The port has no fallback to another kernel or to a plain version.
 
 Every banded launch of the port, whichever algorithm makes it, is sized by
-:func:`launch_chunks` from the chosen kernel's traceback bytes.
+:func:`launch_chunks` from the chosen kernel's traceback bytes and the
+scratch its variant takes.
 """
 
 import functools
@@ -24,8 +29,10 @@ import functools
 import numpy as np
 import torch
 
-from .nw_diag import band_slots, banded_nw_diag, padded_diagonals
-from .nw_row import band_width_row, banded_nw_row, tb_rows
+from .nw_diag import (band_slots, banded_nw_diag, nw_diag_scratch_bytes,
+                      padded_diagonals)
+from .nw_row import (band_width_row, banded_nw_row, nw_row_scratch_bytes,
+                     tb_rows)
 from .tb_decode import traceback_paths_device
 
 #: the banded-NW kernels, by the name a caller gives
@@ -50,7 +57,19 @@ def tb_bytes_per_problem(Lq: int, Lt: int, r: int,
     return padded_diagonals(Lq, Lt) // 4 * band_slots(r)
 
 
-#: device-memory budget for the tracebacks of one banded launch
+def scratch_bytes_per_problem(Lq: int, Lt: int, r: int,
+                              kernel: str = "diag") -> int:
+    """Device scratch one problem of a (Lq, Lt) batch takes in a launch of
+    ``kernel`` at radius r: 0 where the kernel's shared-memory variant runs,
+    the diagonals or the row where its device-memory variant does."""
+    _check_kernel(kernel)
+    if kernel == "row":
+        return nw_row_scratch_bytes(Lq, Lt, r)
+    return nw_diag_scratch_bytes(Lq, Lt, r)
+
+
+#: device-memory budget for the tracebacks (and scratch) of one banded
+#: launch
 MEM_BUDGET_PER_DISPATCH = 1 << 28
 
 
@@ -58,8 +77,9 @@ def launch_chunks(idxs, Lq: int, Lt: int, r: int,
                   kernel: str = "diag") -> list[np.ndarray]:
     """``idxs`` (problems of a (Lq, Lt) batch, all at radius r) cut into
     the problems of successive launches of ``kernel``, each launch's
-    tracebacks within MEM_BUDGET_PER_DISPATCH."""
-    per = tb_bytes_per_problem(Lq, Lt, r, kernel)
+    tracebacks and scratch within MEM_BUDGET_PER_DISPATCH."""
+    per = (tb_bytes_per_problem(Lq, Lt, r, kernel)
+           + scratch_bytes_per_problem(Lq, Lt, r, kernel))
     n = max(1, MEM_BUDGET_PER_DISPATCH // max(1, per))
     idxs = np.asarray(idxs)
     return [idxs[s: s + n] for s in range(0, len(idxs), n)]

@@ -25,6 +25,12 @@ For CUDA tensors the wrapper launches ``csrc/myers.cu``, counts the launch in
 :func:`myers_bottom_row_torch`, the plain version, which carries the 32-bit
 words as int64 and masks to 32 bits after every ``+``, ``<<`` and ``~``
 (torch has no ``>>`` for uint32 on the CPU).
+
+The kernel gives a problem G lanes of K words each (:func:`myers_plan`); a
+query of more words than a warp's 32 x 16 runs in passes of G K words, each
+pass handing the next the horizontal delta of every column through a device
+buffer, so no query length is refused.  The plain version takes the same
+split as ``pass_words`` (it never changes a result).
 """
 
 import torch
@@ -34,14 +40,27 @@ from . import _build
 
 WORD = 32
 _M32 = 0xFFFFFFFF
-#: longest query the kernel takes, in words: 4 words a thread, 1024 threads
-#: a block (131,072 bases)
-MAX_WORDS = 4 * 1024
+#: words a lane takes before a problem gets more lanes, and lanes a problem
+#: at most
+LANE_WORDS, MAX_G = 8, 32
 
 
 def num_words(max_query_length: int) -> int:
     """Wq: 32-base words of a (B, Lq) query batch (at least one)."""
     return max(1, -(-max_query_length // WORD))
+
+
+def myers_plan(Wq: int) -> tuple[int, int, int]:
+    """-> (G, K, passes) of a batch of Wq query words: G, the lanes a
+    problem, the least power of two up to MAX_G with G x LANE_WORDS >= Wq;
+    K, the words a lane holds on a full pass, 16 for a whole warp and
+    LANE_WORDS otherwise; passes of G x K words.  (On its last pass a
+    problem gives each lane only the words its own query needs.)"""
+    G = 1
+    while G < MAX_G and G * LANE_WORDS < Wq:
+        G *= 2
+    K = 16 if G == MAX_G else LANE_WORDS
+    return G, K, -(-Wq // (G * K))
 
 
 def build_peq(q: torch.Tensor, Wq: int) -> torch.Tensor:
@@ -71,10 +90,15 @@ def _check(q, qlen, t, tlen):
 
 
 def myers_bottom_row_torch(q: torch.Tensor, qlen: torch.Tensor,
-                           t: torch.Tensor, tlen: torch.Tensor
+                           t: torch.Tensor, tlen: torch.Tensor,
+                           pass_words: int | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`myers_bottom_row`: the (word,
-    column) wavefront, vectorised over the batch and the words."""
+    column) wavefront, vectorised over the batch and the words.  With
+    ``pass_words`` the words run in passes of that many, as the kernel runs
+    long queries: each pass hands the next the horizontal delta of every
+    column, and only the pass holding a problem's last word moves its
+    bottom row."""
     _check(q, qlen, t, tlen)
     B, Lq = q.shape
     Lt = t.shape[1]
@@ -88,25 +112,50 @@ def myers_bottom_row_torch(q: torch.Tensor, qlen: torch.Tensor,
     ql = qlen.to(i64)
     wlast = (ql - 1).clamp(min=0) // WORD
     bit_last = (ql - 1).clamp(min=0) % WORD
-    barange = torch.arange(B, device=dev)
-    w = torch.arange(Wq, device=dev)
-    Pv = torch.full((B, Wq), _M32, dtype=i64, device=dev)
-    Mv = torch.zeros((B, Wq), dtype=i64, device=dev)
-    # horizontal deltas each word handed up in the previous step, as 0/1
-    up_pos = torch.zeros((B, Wq), dtype=i64, device=dev)
-    up_neg = torch.zeros((B, Wq), dtype=i64, device=dev)
-    ones = torch.ones((B, 1), dtype=i64, device=dev)  # D[0,j]-D[0,j-1] = +1
-    score = ql.clone()
     rows = torch.empty((B, Lt + 1), dtype=i64, device=dev)
     rows[:, 0] = ql
+    # the delta handed into the first word of a pass, per column: +1 below
+    # word 0 (D[0, j] - D[0, j - 1] = 1)
+    hin_pos = torch.ones((B, Lt), dtype=i64, device=dev)
+    hin_neg = torch.zeros((B, Lt), dtype=i64, device=dev)
+    step = pass_words or Wq
+    for w0 in range(0, Wq, step):
+        hin_pos, hin_neg = _myers_pass(peq[:, w0:w0 + step], tx, Lt, hin_pos,
+                                       hin_neg, wlast - w0, bit_last, ql,
+                                       rows)
+    rows = torch.where((ql == 0)[:, None],
+                       torch.arange(Lt + 1, device=dev), rows).to(torch.int32)
+    scores = rows.gather(1, tlen.long().clamp(0, Lt)[:, None])[:, 0]
+    return rows, scores
 
-    for s in range(Lt + Wq - 1):
+
+def _myers_pass(peq, tx, Lt, hin_pos, hin_neg, wlast, bit_last, ql, rows):
+    """The wavefront over one pass's words ``peq (B, n, 5)``, the delta into
+    its first word per column ``hin_pos/neg (B, Lt)``; writes the bottom row
+    into ``rows`` for the problems whose last word ``wlast`` (relative to the
+    pass) it holds, and returns the delta its top word hands up per column."""
+    B, n = peq.shape[:2]
+    dev, i64 = peq.device, torch.int64
+    w = torch.arange(n, device=dev)
+    barange = torch.arange(B, device=dev)
+    holds = (wlast >= 0) & (wlast < n)
+    wl = wlast.clamp(0, max(n - 1, 0))
+    Pv = torch.full((B, n), _M32, dtype=i64, device=dev)
+    Mv = torch.zeros((B, n), dtype=i64, device=dev)
+    # horizontal deltas each word handed up in the previous step, as 0/1
+    up_pos = torch.zeros((B, n), dtype=i64, device=dev)
+    up_neg = torch.zeros((B, n), dtype=i64, device=dev)
+    out_pos = torch.zeros((B, Lt), dtype=i64, device=dev)
+    out_neg = torch.zeros((B, Lt), dtype=i64, device=dev)
+    score = ql.clone()
+    for s in range(Lt + n - 1):
         j = s - w                                     # column of each word
         live = (j >= 0) & (j < Lt)
-        c = tx[:, torch.where(live, j, Lt)]           # (B, Wq)
+        c = tx[:, torch.where(live, j, Lt)]           # (B, n)
         eq = peq.gather(2, torch.where(c >= 0, c, 4)[..., None])[..., 0]
-        hp = torch.cat([ones, up_pos[:, :-1]], 1)
-        hn = torch.cat([ones - 1, up_neg[:, :-1]], 1)
+        j0 = min(s, Lt - 1)                           # the first word's column
+        hp = torch.cat([hin_pos[:, j0:j0 + 1], up_pos[:, :-1]], 1)
+        hn = torch.cat([hin_neg[:, j0:j0 + 1], up_neg[:, :-1]], 1)
         eq2 = eq | hn
         xv = eq | Mv
         xh = ((((eq2 & Pv) + Pv) & _M32) ^ Pv) | eq2
@@ -114,22 +163,22 @@ def myers_bottom_row_torch(q: torch.Tensor, qlen: torch.Tensor,
         mh = Pv & xh
         up_pos = ph >> (WORD - 1)
         up_neg = mh >> (WORD - 1)
+        jt = s - (n - 1)                              # the top word's column
+        if 0 <= jt < Lt:
+            out_pos[:, jt] = up_pos[:, -1]
+            out_neg[:, jt] = up_neg[:, -1]
         # the bottom row: the last word's column moves one step
-        jl = s - wlast
-        d = (((ph[barange, wlast] >> bit_last) & 1)
-             - ((mh[barange, wlast] >> bit_last) & 1))
-        at = (jl >= 0) & (jl < Lt)
+        jl = s - wl
+        d = (((ph[barange, wl] >> bit_last) & 1)
+             - ((mh[barange, wl] >> bit_last) & 1))
+        at = holds & (jl >= 0) & (jl < Lt)
         score = torch.where(at, score + d, score)
         rows[barange[at], jl[at] + 1] = score[at]
         ph = ((ph << 1) & _M32) | hp
         mh = ((mh << 1) & _M32) | hn
         Pv = torch.where(live, mh | (~(xv | ph) & _M32), Pv)
         Mv = torch.where(live, ph & xv, Mv)
-
-    rows = torch.where((ql == 0)[:, None],
-                       torch.arange(Lt + 1, device=dev), rows).to(torch.int32)
-    scores = rows.gather(1, tlen.long().clamp(0, Lt)[:, None])[:, 0]
-    return rows, scores
+    return out_pos, out_neg
 
 
 def myers_bottom_row(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
@@ -153,20 +202,21 @@ def myers_bottom_row(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     B, Lq = q.shape
     Lt = t.shape[1]
     Wq = num_words(Lq)
-    if Wq > MAX_WORDS:
-        raise ValueError(f"query length {Lq} > {MAX_WORDS * WORD}, the "
-                         f"longest the myers kernel takes")
+    G, K, passes = myers_plan(Wq)
     q, qlen, t, tlen = (x.contiguous() for x in (q, qlen, t, tlen))
     rows = torch.empty((B, Lt + 1), dtype=torch.int32, device=q.device)
     scores = torch.empty(B, dtype=torch.int32, device=q.device)
     if B == 0:
         return rows, scores
+    carry = torch.empty(2 * B * (-(-Lt // 4)) if passes > 1 else 0,
+                        dtype=torch.uint8, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device), kernel_span(
             "myers", (q, qlen, t, tlen), B * Wq * Lt):
         err = lib.cga_myers(
             q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(),
-            rows.data_ptr(), scores.data_ptr(), B, Lq, Lt, Wq,
+            rows.data_ptr(), scores.data_ptr(),
+            carry.data_ptr() if passes > 1 else None, B, Lq, Lt, G, K,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "myers")
     myers_bottom_row.launches += 1

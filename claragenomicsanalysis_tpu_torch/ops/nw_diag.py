@@ -19,6 +19,12 @@ so either package's traceback decodes with either package's decoder.
   the batch and the band with a Python loop over diagonals.
 - :func:`traceback_paths_diag` decodes a traceback on the host with NumPy.
 
+The kernel has two variants of one body: a block keeps its problem's two
+diagonals, code bytes, query and target in shared memory where
+:func:`nw_diag_smem_bytes` fits a block (``_build.SMEM_PER_BLOCK``), and
+otherwise keeps the diagonals and codes in a device scratch buffer of
+:func:`nw_diag_scratch_bytes` a problem and reads the bases through L1.
+
 A problem's diagonals end at ``round_up(qlen + tlen + 1, 4)``; the traceback
 rows past that are zero.  Where ``|qlen - tlen| > r`` the score is INF and
 the problem's traceback is not a path.
@@ -44,6 +50,28 @@ def band_slots(band_radius: int) -> int:
 def padded_diagonals(Lq: int, Lt: int) -> int:
     """Dpad: diagonals covered by the traceback of a (Lq, Lt) batch."""
     return round_up(Lq + Lt + 1, 16)
+
+
+def nw_diag_smem_bytes(Lq: int, Lt: int, band_radius: int) -> int:
+    """Shared memory a block of the shared variant needs for a (Lq, Lt)
+    batch at radius r: two int32 diagonals and a code byte a slot, then q
+    and t."""
+    return 9 * band_slots(band_radius) + Lq + Lt
+
+
+def nw_diag_variant(Lq: int, Lt: int, band_radius: int) -> str:
+    """The kernel variant a (Lq, Lt) batch at radius r runs: ``"shared"``
+    where :func:`nw_diag_smem_bytes` fits a block, else ``"device"``."""
+    fits = nw_diag_smem_bytes(Lq, Lt, band_radius) <= _build.SMEM_PER_BLOCK
+    return "shared" if fits else "device"
+
+
+def nw_diag_scratch_bytes(Lq: int, Lt: int, band_radius: int) -> int:
+    """Device scratch one problem takes: 9W bytes (two int32 diagonals and a
+    code byte a slot) for the device variant, 0 for the shared one."""
+    if nw_diag_variant(Lq, Lt, band_radius) == "shared":
+        return 0
+    return 9 * band_slots(band_radius)
 
 
 def _check(q, qlen, t, tlen, band_radius):
@@ -157,12 +185,16 @@ def banded_nw_diag(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     tb = torch.empty((Dpad // 4, B, W), dtype=torch.int8, device=q.device)
     if B == 0:
         return scores, tb
+    per = nw_diag_scratch_bytes(Lq, Lt, band_radius)
+    scratch = torch.empty(B * per if per else 0, dtype=torch.uint8,
+                          device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device), kernel_span(
             "nw_diag", (q, qlen, t, tlen, band_radius), B * Dpad * W):
         err = lib.cga_nw_diag(
             q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(),
-            scores.data_ptr(), tb.data_ptr(), B, Lq, Lt, band_radius, W,
+            scores.data_ptr(), tb.data_ptr(),
+            scratch.data_ptr() if per else None, B, Lq, Lt, band_radius, W,
             Dpad, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "nw_diag")
     banded_nw_diag.launches += 1

@@ -20,6 +20,13 @@ traceback decodes with either package's decoder.  The DP is int32 with
 - :func:`banded_nw_row_torch` is the plain PyTorch version, vectorised over
   the batch and the band with a Python loop over rows.
 
+The kernel has two variants of one body, chosen by :func:`nw_row_plan`: a
+block keeps its problem's row, query and target in shared memory where
+:func:`nw_row_smem_bytes` fits a block (``_build.SMEM_PER_BLOCK``), and
+otherwise keeps the row in a device scratch buffer (``4 (W + 1)`` bytes a
+problem) and reads the bases through L1.  A thread owns ``cpt x groups``
+contiguous lanes, so no band width is refused.
+
 A problem's rows end at ``round_up(qlen, 4)``; the traceback rows past that
 are zero.  Where ``|qlen - tlen| > r`` the score is INF and the problem's
 traceback is not a path.
@@ -43,6 +50,45 @@ def tb_rows(Lq: int) -> int:
     """Packed traceback rows of a batch of padded query length Lq (four DP
     rows per byte, the query padded to 16 as the JAX kernel pads it)."""
     return round_up(Lq, 16) // 4
+
+
+#: lanes a thread owns in one lane group, at most (the widest instance of
+#: the kernel), and threads a block
+MAX_CPT, MAX_THREADS = 8, 1024
+
+
+def nw_row_smem_bytes(Lq: int, Lt: int, band_radius: int) -> int:
+    """Shared memory a block of the shared variant needs for a (Lq, Lt)
+    batch at radius r: the row (W + 1 int32), the 32 warp totals, q and t."""
+    return 4 * (band_width_row(band_radius) + 1) + 4 * 32 + Lq + Lt
+
+
+def nw_row_plan(Lq: int, Lt: int, band_radius: int) -> tuple:
+    """-> (variant, cpt, groups, threads) of a (Lq, Lt) batch at radius r.
+
+    ``"shared"`` where :func:`nw_row_smem_bytes` fits a block and W is at
+    most MAX_CPT x MAX_THREADS (the shared variant keeps a lane's codes in
+    registers, one lane group), else ``"device"``.  A thread owns ``cpt x
+    groups`` contiguous lanes: cpt is the least power of two up to MAX_CPT
+    that covers W with MAX_THREADS threads; the device variant adds lane
+    groups of MAX_CPT past that."""
+    W = band_width_row(band_radius)
+    shared = (nw_row_smem_bytes(Lq, Lt, band_radius) <= _build.SMEM_PER_BLOCK
+              and W <= MAX_CPT * MAX_THREADS)
+    cpt = 1
+    while cpt < MAX_CPT and cpt * MAX_THREADS < W:
+        cpt *= 2
+    groups = -(-W // (cpt * MAX_THREADS))
+    threads = round_up(-(-W // (cpt * groups)), 32)
+    return ("shared" if shared else "device"), cpt, groups, threads
+
+
+def nw_row_scratch_bytes(Lq: int, Lt: int, band_radius: int) -> int:
+    """Device scratch one problem takes: its row, 4 (W + 1) bytes, for the
+    device variant; 0 for the shared one."""
+    if nw_row_plan(Lq, Lt, band_radius)[0] == "shared":
+        return 0
+    return 4 * (band_width_row(band_radius) + 1)
 
 
 def banded_nw_row_torch(q: torch.Tensor, qlen: torch.Tensor,
@@ -139,12 +185,17 @@ def banded_nw_row(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     tb = torch.empty((R4, B, W), dtype=torch.int8, device=q.device)
     if B == 0:
         return scores, tb
+    variant, cpt, groups, _ = nw_row_plan(Lq, Lt, band_radius)
+    per = nw_row_scratch_bytes(Lq, Lt, band_radius)
+    scratch = torch.empty(B * per // 4, dtype=torch.int32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device), kernel_span(
             "nw_row", (q, qlen, t, tlen, band_radius), B * 4 * R4 * W):
         err = lib.cga_nw_row(
             q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(),
-            scores.data_ptr(), tb.data_ptr(), B, Lq, Lt, band_radius, W, R4,
+            scores.data_ptr(), tb.data_ptr(),
+            scratch.data_ptr() if variant == "device" else None, B, Lq, Lt,
+            band_radius, W, R4, cpt, groups,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "nw_row")
     banded_nw_row.launches += 1

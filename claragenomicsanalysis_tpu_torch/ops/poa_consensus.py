@@ -27,6 +27,22 @@ from . import _build
 from .poa_state import NEG, padget_cols
 
 
+def consensus_smem_bytes(N: int, P: int, MC: int) -> int:
+    """Shared memory a block of the kernel's shared variant takes: the
+    scores (two buffers), heaviest in-edges, tie counts, flags, best preds,
+    tied preds and the walk back, ``4 (6N + NP + MC)`` bytes.  Past
+    ``_build.SMEM_PER_BLOCK`` the device variant keeps the same tables in
+    device scratch, as many bytes a window."""
+    return 4 * (6 * N + N * P + MC)
+
+
+def consensus_variant(N: int, P: int, MC: int) -> str:
+    """``"shared"`` where :func:`consensus_smem_bytes` fits a block, else
+    ``"device"``."""
+    fits = consensus_smem_bytes(N, P, MC) <= _build.SMEM_PER_BLOCK
+    return "shared" if fits else "device"
+
+
 def _check(npred, pred, predw, base, cov, rank, node_count):
     W, N = npred.shape
     if pred.dim() != 3 or pred.shape[:2] != (W, N) \
@@ -132,12 +148,17 @@ def consensus(npred, pred, predw, base, cov, rank, node_count,
     length = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return codes, covs, length
+    device = consensus_variant(N, P, max_cons) == "device"
+    scratch = torch.empty(
+        W * consensus_smem_bytes(N, P, max_cons) // 4 if device else 0,
+        dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev), kernel_span(
             "poa_consensus", ins + (max_cons,), W * N * P):
         err = lib.cga_poa_consensus(
             *(t.data_ptr() for t in ins), codes.data_ptr(), covs.data_ptr(),
-            length.data_ptr(), W, N, P, max_cons,
+            length.data_ptr(), scratch.data_ptr() if device else None, W, N,
+            P, max_cons,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_consensus")
     consensus.launches += 1

@@ -39,14 +39,94 @@ also gets ``band_ok`` False.  The caller ignores both.
 import torch
 
 from ..core.config import PoaScores
+from ..utils.mathutils import round_up
 from ..utils.profiling import kernel_span
 from . import _build
 from .poa_state import NEG, padget_cols
 
 
-def plane_bytes(N: int, L: int) -> int:
-    """Bytes of one window's score plane."""
-    return 4 * (N + 1) * (L + 1)
+def nwtb_word_bytes(N: int, L: int, scores: PoaScores) -> int:
+    """Bytes of the kernel's plane word: 4 (an int32 holding the value in
+    24 bits above the move byte) where every real cell fits, |score| x
+    (N + L + 1) < 2^22, else 8 (an int64 holding the int32 value whole)."""
+    top = max(abs(scores.match_score), abs(scores.mismatch_score),
+              abs(scores.gap_score))
+    return 4 if top * (N + L + 1) < 1 << 22 else 8
+
+
+def plane_bytes(N: int, L: int, scores: PoaScores | None = None) -> int:
+    """Bytes of one window's score plane, in the kernel's words."""
+    word = nwtb_word_bytes(N, L, scores or PoaScores())
+    return word * (N + 1) * (L + 1)
+
+
+#: the widest row a warp takes, the windows of a block of the warp variant,
+#: the ring's deepest rows, the threads of a block a window for rows a warp
+#: could take, and the most windows a launch gives a block each (8 an SM of
+#: 132)
+WARP_COLUMNS, WARP_WINDOWS, RING_ROWS = 512, 4, 8
+BLOCK_THREADS, BLOCK_WINDOWS = 128, 8 * 132
+
+
+def ring_width(L: int, band_width: int) -> int:
+    """Columns of a ring row: the band's 2 (band_width // 2) + 1 when
+    banded, else all L + 1."""
+    if band_width > 0:
+        return min(2 * (band_width // 2) + 1, L + 1)
+    return L + 1
+
+
+def nwtb_smem_bytes(N: int, P: int, L: int, band_width: int,
+                    ring_rows: int = RING_ROWS, word: int = 4) -> int:
+    """Shared memory one window takes in ``csrc/poa_nwtb.cu``: a ring of
+    ``ring_rows`` rows of :func:`ring_width` words of ``word`` bytes, the
+    facts of two rows (in-degree, base, band, and each pred slot's plane
+    row and band: 4 + 3P int32 each) and the sequence as bytes, in int32
+    (an even count of them for 8-byte words).  The graph is read where it
+    lies, through L1, so no node count is refused."""
+    ints = (ring_rows * ring_width(L, band_width) * word // 4
+            + 2 * (4 + 3 * P) + -(-L // 4))
+    return 4 * (round_up(ints, 2) if word == 8 else ints)
+
+
+def nwtb_plan(W: int, N: int, P: int, L: int, band_width: int,
+              word: int = 4) -> tuple:
+    """-> (variant, threads, ring) of a launch of W windows.
+
+    ``"warp"`` (a warp a window, WARP_WINDOWS windows a block: many windows
+    fill the card by themselves) where a row has at most WARP_COLUMNS
+    columns, the launch has more than BLOCK_WINDOWS windows and
+    WARP_WINDOWS windows' facts and sequences fit a block; else ``"block"``
+    (a block a window: BLOCK_THREADS threads, a row's columns spread over
+    four warps, which a window's chain of rows needs when few windows share
+    the card, or about four columns a thread, up to 1,024 threads, for
+    wider rows).  The ring is the deepest power of two up to RING_ROWS
+    whose rings fit a block, 0 when not even two rows do.  Raises
+    ValueError where not even a block a window without a ring fits (two
+    rows of pred facts and the sequence past 227 KB: P past about 9,600
+    or L past about 232,000)."""
+    RW = ring_width(L, band_width)
+    limit = _build.SMEM_PER_BLOCK - 128      # the warp totals are static
+
+    def fits(windows, ring):
+        return windows * nwtb_smem_bytes(N, P, L, band_width, ring,
+                                         word) <= limit
+
+    if RW <= WARP_COLUMNS and W > BLOCK_WINDOWS and fits(WARP_WINDOWS, 0):
+        variant, threads, windows = "warp", 32 * WARP_WINDOWS, WARP_WINDOWS
+    else:
+        variant, windows = "block", 1
+        threads = BLOCK_THREADS if RW <= WARP_COLUMNS else \
+            min(1024, round_up(-(-RW // 4), 32))
+        if not fits(1, 0):
+            raise ValueError(
+                f"graph NW: a window's pred facts and sequence take "
+                f"{nwtb_smem_bytes(N, P, L, band_width, 0, word)} B of "
+                f"shared memory, past a block's {limit} (P={P}, L={L})")
+    ring = RING_ROWS
+    while ring >= 2 and not fits(windows, ring):
+        ring //= 2
+    return variant, threads, (ring if ring >= 2 else 0)
 
 
 def _check(seq, order, rank, npred, base, nsucc, pred, slen, node_count,
@@ -203,6 +283,9 @@ def graph_nw_traceback(seq, order, rank, npred, base, nsucc, pred, slen,
       scores: the match, mismatch and gap scores.
       band_width: 0 for the full DP, else the static band's width.
 
+    The kernel's variant, ring depth and plane word come from
+    :func:`nwtb_plan` and :func:`nwtb_word_bytes`; none changes a result.
+
     Returns:
       pn, pp: (W, N + L) int32 path; k0: (W,) int32 its first entry;
       band_ok: (W,) bool.
@@ -220,6 +303,8 @@ def graph_nw_traceback(seq, order, rank, npred, base, nsucc, pred, slen,
     alive_i = alive.to(torch.int32)
     W, L = seq.shape
     N, P = pred.shape[1], pred.shape[2]
+    word = nwtb_word_bytes(N, L, scores)
+    variant, threads, ring = nwtb_plan(W, N, P, L, band_width, word)
     TL = N + L
     dev = seq.device
     pn = torch.empty((W, TL), dtype=torch.int32, device=dev)
@@ -228,7 +313,8 @@ def graph_nw_traceback(seq, order, rank, npred, base, nsucc, pred, slen,
     band_ok = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return pn, pp, k0, band_ok.bool()
-    plane = torch.empty((W, N + 1, L + 1), dtype=torch.int32, device=dev)
+    plane = torch.empty((W, N + 1, L + 1), device=dev,
+                        dtype=torch.int64 if word == 8 else torch.int32)
     lib = _build.load()
     with torch.cuda.device(dev), kernel_span(
             "poa_nwtb", ins + (alive, scores, band_width),
@@ -238,6 +324,8 @@ def graph_nw_traceback(seq, order, rank, npred, base, nsucc, pred, slen,
             plane.data_ptr(), pn.data_ptr(), pp.data_ptr(), k0.data_ptr(),
             band_ok.data_ptr(), W, N, P, L, scores.match_score,
             scores.mismatch_score, scores.gap_score, band_width,
+            int(variant == "block"), threads, ring,
+            ring_width(L, band_width), word,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_nwtb")
     graph_nw_traceback.launches += 1

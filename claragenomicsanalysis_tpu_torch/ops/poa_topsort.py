@@ -25,6 +25,21 @@ from . import _build
 from .poa_state import padget_cols
 
 
+def topsort_smem_bytes(N: int, P: int) -> int:
+    """Shared memory a block of the kernel's shared variant takes: two level
+    buffers, the in-degrees and the pred lists, ``4 N (3 + P)`` bytes.  Past
+    ``_build.SMEM_PER_BLOCK`` the device variant runs, with the two level
+    buffers (8N bytes a window) in device scratch."""
+    return 4 * N * (3 + P)
+
+
+def topsort_variant(N: int, P: int) -> str:
+    """``"shared"`` where :func:`topsort_smem_bytes` fits a block, else
+    ``"device"``."""
+    fits = topsort_smem_bytes(N, P) <= _build.SMEM_PER_BLOCK
+    return "shared" if fits else "device"
+
+
 def _check(level, npred, pred, node_count):
     W, N = level.shape
     if pred.dim() != 3 or pred.shape[:2] != (W, N) or npred.shape != (W, N) \
@@ -93,13 +108,17 @@ def topsort(level: torch.Tensor, npred: torch.Tensor, pred: torch.Tensor,
     ok = torch.empty(W, dtype=torch.int32, device=level.device)
     if W == 0:
         return out_level, order, rank, ok.bool()
+    device = topsort_variant(N, P) == "device"
+    scratch = torch.empty(2 * W * N if device else 0, dtype=torch.int32,
+                          device=level.device)
     lib = _build.load()
     with torch.cuda.device(level.device), kernel_span(
             "poa_topsort", (level, npred, pred, node_count), W * N * P):
         err = lib.cga_poa_topsort(
             level.data_ptr(), npred.data_ptr(), pred.data_ptr(),
             node_count.data_ptr(), out_level.data_ptr(), order.data_ptr(),
-            rank.data_ptr(), ok.data_ptr(), W, N, P,
+            rank.data_ptr(), ok.data_ptr(),
+            scratch.data_ptr() if device else None, W, N, P,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_topsort")
     topsort.launches += 1
