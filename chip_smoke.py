@@ -9,9 +9,12 @@ Phases, one line or more each:
   1. environment, the card's name, power limit and SM clock, and the kernel
      build (nvcc, from csrc/ in this checkout);
   2. the banded-NW kernels against their plain PyTorch versions on the card:
-     the anti-diagonal one (B1) and the row one (B3, at r = 1, 3, 8, 31, 64
-     and two bands wider than a block's 1,024 threads), each row result
-     also against B1's scores and paths;
+     the anti-diagonal one (B1) in each of its plans (a warp a problem at
+     K = 1-8 slots a lane, q and t staged or read through L1; a block a
+     problem, shared or device: NW_DIAG_PLANS), each timed with its bound,
+     and the row one (B3, at r = 1, 3, 8, 31, 64 and two bands wider than a
+     block's 1,024 threads), each row result also against B1's scores and
+     paths;
   3. the traceback-decode kernels (B2, both layouts) against their plain
      versions on the same tb;
   4. the port's ``align`` CLI on the bundled data against the golden file,
@@ -46,7 +49,9 @@ Phases, one line or more each:
      sequence, N bases, a first sequence over the node cap and a 2-node
      graph against 60 bases (banded: sums on NEG); then the
      one-kernel-per-window POA (B10) on the same windows against the
-     lockstep loop over the plain versions, with and without the MSA;
+     lockstep loop over the plain versions, with and without the MSA, in
+     each of its plans (a warp or a block a window, rings of 8, 2 and 0
+     rows) and on 8-byte plane words;
  10b. B5's variants (a warp or a block a window, with the ring, a 2-row
      ring and none; 72 pred slots; 8-byte plane words) against its plain
      version at every lockstep launch;
@@ -69,10 +74,11 @@ Phases, one line or more each:
      each row its sequence unless a shared column took bases of it), and
      ``get_graphs`` on 64 windows against the final graph state;
  15. the one-kernel-per-window route (``kernel="window"``) on phase 14's
-     windows with the MSA and on phase 12's without: outputs equal to the
-     lockstep route's, its wall beside the lockstep route's on the same
-     data, B10 against its plain version at its largest launch; at phase
-     13's shape the route must refuse the plan with the sizes named;
+     windows with the MSA, phase 12's and phase 13's (deep, banded) without:
+     outputs equal to the lockstep route's, its wall beside the lockstep
+     route's on the same data, B10 against its plain version at its
+     largest launch in its plan and in the other one (a warp or a block a
+     window), with times and bound;
  16. the row route, ``create_aligner(..., kernel="row")``, on phase 5's
      1,024 pairs (``ukkonen``): results equal to phase 5's pair for pair,
      B3 and B2's row decode launched and B1 and B2's diag decode not, its
@@ -91,16 +97,18 @@ Phases, one line or more each:
      window) and of 9,000-base sequences (B7 and B8 on device memory, B5
      past L = 8,191), each kernel at its largest launch against its plain
      version with times and bounds.
-Then a line per redesigned kernel (B4, B5) with its time at each main
-path's largest launch beside the first design's as PERF.md records it
+Then a line per redesigned kernel (B1, B4, B5, B10) with its time at each
+main path's largest launch beside the first design's as PERF.md records it
 (FIRST_DESIGN_MS, not measured by this run) and its bound, and a line per
-variant of phases 6, 17 and 18.  Then one JSON line describing every kernel: under ``paths``, for each main
-path (``ukkonen``, ``myers``, ``poa``, ``poa_deep``, ``poa_msa``,
-``poa_window``, ``poa_window_msa``, ``ukkonen_row``), its launches in that
+variant of phases 2, 6, 15, 17 and 18.  Then one JSON line describing every
+kernel: under ``paths``, for each main path (``ukkonen``, ``myers``,
+``poa``, ``poa_deep``, ``poa_msa``, ``poa_window``, ``poa_window_msa``,
+``poa_window_deep``, ``ukkonen_row``), its launches in that
 run (counts zeroed just before it, read just after) and the kernel's time,
 plain time and bound (the least time the card could take for the same work)
 at that path's largest launch, and the kernel's device time in that run
-(``run_ms``); under ``variants`` the figures of phases 6, 17 and 18 (every
+(``run_ms``); under ``variants`` the figures of phases 2, 6, 15, 17 and 18
+(every
 number in the line measured by this run, but the bounds, which it
 computes); at the top level the sum of the launches, the largest difference from the plain
 version seen anywhere, and the times of the path where the kernel spent the
@@ -143,7 +151,10 @@ OPS_PER_MYERS_WORD = 27  # myers: one 32-bit word update (ops/myers_pallas.py)
 #: lines only, labelled so: (kernel, path) -> ms
 FIRST_DESIGN_MS = {("poa_nwtb", "poa"): 1.368, ("poa_nwtb", "poa_deep"): 2.042,
                    ("poa_nwtb", "poa_msa"): 1.191,
-                   ("myers", "myers"): 9.327}
+                   ("myers", "myers"): 9.327,
+                   ("nw_diag", "ukkonen"): 4.816, ("nw_diag", "myers"): 1.864,
+                   ("poa_window", "poa_window_msa"): 18.430,
+                   ("poa_window", "poa_window"): 20.779}
 FIRST_MYERS_MS = {"score pass": 7.023, "Hirschberg level 0": 9.327}
 
 
@@ -349,54 +360,78 @@ def wide_band_pairs(rng, n: int):
     return pairs + [("", a), (a[:200], ""), (a[:100] + "N" * 20, a[:120])]
 
 
-def phase_kernels(rng):
-    """Phases 2 and 3: each kernel against its plain version on the card.
-    Returns the largest absolute differences seen, by kernel."""
+#: B1's plans reached in phase 2: (radius, SMEM_PER_BLOCK or None); the
+#: lowered SMEM_PER_BLOCK moves a warp launch to reading q and t through L1
+#: and a block launch to device memory, at these small shapes
+NW_DIAG_PLANS = ((3, None), (40, None), (64, None), (100, None), (150, None),
+                 (200, None), (255, None), (300, None), (64, 600),
+                 (300, 600))
+
+
+@contextlib.contextmanager
+def smem_forced(limit):
+    """Inside the block the kernels' plans see a block's shared memory as
+    ``limit`` bytes (ops._build.SMEM_PER_BLOCK; None leaves it)."""
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    saved = _build.SMEM_PER_BLOCK
+    if limit is not None:
+        _build.SMEM_PER_BLOCK = limit
+    try:
+        yield
+    finally:
+        _build.SMEM_PER_BLOCK = saved
+
+
+def phase_kernels(rng, sm_mhz: float):
+    """Phases 2 and 3: each kernel against its plain version on the card,
+    B1 in each of its plans (NW_DIAG_PLANS: a warp a problem at K = 1, 2, 3,
+    4, 5, 7 and 8 slots a lane, staged or reading through L1; a block a
+    problem, shared or device) with B2's decode of its traceback.  Returns the
+    largest absolute differences seen, by kernel, and B1's plans' timed
+    entries."""
     import numpy as np
-    import torch
-    from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row, tb_decode
+    from claragenomicsanalysis_tpu_torch.ops import nw_diag, tb_decode
     from claragenomicsanalysis_tpu_torch.ops.convert import from_reference
     pairs = edge_pairs(rng, 256)
     q, qlen, t, tlen = from_reference(*pack(pairs), device="cuda")[:4]
     qlen_np, tlen_np = qlen.cpu().numpy(), tlen.cpu().numpy()
+    Lq, Lt = q.shape[1], t.shape[1]
     err_nw = err_tb = 0
-    for r in (3, 16, 64, 200):
-        s_k, tb_k = nw_diag.banded_nw_diag(q, qlen, t, tlen, r)
-        torch.cuda.synchronize()
-        s_p, tb_p = nw_diag.banded_nw_diag_torch(q, qlen, t, tlen, r)
-        d_s = int((s_k.long() - s_p.long()).abs().max())
-        d_tb = int((tb_k.int() - tb_p.int()).abs().max())
-        err_nw = max(err_nw, d_s, d_tb)
+    plans, cache = [], {}
+    for r, limit in NW_DIAG_PLANS:
+        with smem_forced(limit):
+            plan = nw_diag.nw_diag_plan(Lq, Lt, r)
+            keep = cache.setdefault(r, {})
+            timed = time_banded(q, qlen, t, tlen, r, sm_mhz,
+                                f"phase 2 ({'/'.join(map(str, plan))})",
+                                plain=keep)
+        err_nw = max(err_nw, timed["nw_diag"]["err"])
+        err_tb = max(err_tb, timed["tb_decode"]["err"])
+        s_k, tb_k, pk, sk = keep["kernel"]
         ok = (s_k < nw_diag.INF).cpu().numpy()
         p_k = nw_diag.traceback_paths_diag(tb_k.cpu().numpy(), qlen_np,
                                            tlen_np, r)
-        p_p = nw_diag.traceback_paths_diag(tb_p.cpu().numpy(), qlen_np,
-                                           tlen_np, r)
+        if "host" not in keep:
+            keep["host"] = nw_diag.traceback_paths_diag(
+                keep["nw"][1][1].cpu().numpy(), qlen_np, tlen_np, r)
+        p_p = keep["host"]
         bad = [b for b in np.flatnonzero(ok) if p_k[b] != p_p[b]]
-        print(f"phase 2 nw_diag r={r}: B={len(pairs)} Lq={q.shape[1]} "
-              f"Lt={t.shape[1]} finite={int(ok.sum())} score_diff={d_s} "
-              f"tb_diff={d_tb} path_mismatches={len(bad)}")
-        check(d_s == 0 and d_tb == 0 and not bad,
-              f"nw_diag kernel disagrees with its plain version at r={r}")
-        check(not ok[-2], "the out-of-band row must score INF")
-
-        pk, sk = tb_decode.decode_diag(tb_k, qlen, tlen, r)
-        torch.cuda.synchronize()
-        pp, sp = tb_decode.decode_diag_torch(tb_k, qlen, tlen, r)
-        okt = torch.from_numpy(ok).cuda()
-        d_p = int((pk[okt].long() - pp[okt].long()).abs().max())
-        d_st = int((sk[okt].long() - sp[okt].long()).abs().max())
-        err_tb = max(err_tb, d_p, d_st)
         paths = tb_decode.unpack_paths(pk.cpu().numpy(), sk.cpu().numpy())
-        bad = [b for b in np.flatnonzero(ok) if paths[b] != p_p[b]]
-        print(f"phase 3 tb_decode r={r}: packed_diff={d_p} start_diff={d_st} "
-              f"path_mismatches_vs_host={len(bad)}")
-        check(d_p == 0 and d_st == 0 and not bad,
-              f"tb_decode kernel disagrees with its plain version at r={r}")
+        bad_dec = [b for b in np.flatnonzero(ok) if paths[b] != p_p[b]]
+        print(f"phase 2 nw_diag r={r} plan {plan}: B={len(pairs)} Lq={Lq} "
+              f"Lt={Lt} finite={int(ok.sum())}, host paths of the kernel's "
+              f"tb vs the plain version's: {len(bad)} mismatches; phase 3 "
+              f"tb_decode's paths vs the host's: {len(bad_dec)} mismatches")
+        check(not bad and not bad_dec,
+              f"nw_diag or tb_decode disagrees with the plain version at "
+              f"r={r} ({plan})")
+        check(not ok[-2], "the out-of-band row must score INF")
+        plans.append(timed["nw_diag"] | {
+            "variant": f"{plan[0]} K={plan[1]} problems={plan[2]}"})
     errs = {"nw_diag": err_nw, "tb_decode": err_tb}
     errs |= phase_row_kernels(pairs, (1, 3, 8, 31, 64))
     wide = phase_row_kernels(wide_band_pairs(rng, 64), (600, 2100))
-    return errs | {k: max(v, errs[k]) for k, v in wide.items()}
+    return errs | {k: max(v, errs[k]) for k, v in wide.items()}, plans
 
 
 def phase_row_kernels(pairs, radii) -> dict:
@@ -627,7 +662,7 @@ def banded_kernels(kernel: str) -> tuple:
 
 
 def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str,
-                kernel: str = "diag") -> dict:
+                kernel: str = "diag", plain: dict | None = None) -> dict:
     """The banded-NW kernel of ``kernel`` (B1 or B3) and its layout's
     decoder (B2) against their plain versions on these inputs, exactly (NW:
     scores and the whole tb; decode: packed paths and starts, on the
@@ -636,16 +671,23 @@ def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str,
     for both kernels: they compute one function), q, t and the lengths read
     once, scores and tb written once; for the decode 16 operations per step
     of the walk, one tb byte read per step, the packed paths and starts
-    written once."""
+    written once.  ``plain``, where given, keeps the plain versions' outputs
+    and times of these inputs (a dict, filled on the first call), so that
+    several plans of one kernel on them run the plain versions once; the
+    kernel's own outputs land in it as ``"kernel"``."""
     import numpy as np
     (name_nw, name_tb), nw, nw_plain, dec, dec_plain, width = \
         banded_kernels(kernel)
+    plain = {} if plain is None else plain
     ms_nw, (s_k, tb_k) = cuda_ms(lambda: nw(q, qlen, t, tlen, r), 5)
-    ms_nw_plain, (s_p, tb_p) = cuda_ms(
-        lambda: nw_plain(q, qlen, t, tlen, r), 1)
+    if "nw" not in plain:
+        plain["nw"] = cuda_ms(lambda: nw_plain(q, qlen, t, tlen, r), 1)
+    ms_nw_plain, (s_p, tb_p) = plain["nw"]
     ms_tb, (pk_k, st_k) = cuda_ms(lambda: dec(tb_k, qlen, tlen, r), 5)
-    ms_tb_plain, (pk_p, st_p) = cuda_ms(
-        lambda: dec_plain(tb_k, qlen, tlen, r), 1)
+    if "dec" not in plain:  # on the plain tb, which the kernel's must equal
+        plain["dec"] = cuda_ms(lambda: dec_plain(tb_p, qlen, tlen, r), 1)
+    ms_tb_plain, (pk_p, st_p) = plain["dec"]
+    plain["kernel"] = (s_k, tb_k, pk_k, st_k)
     err_nw = max(int((s_k.long() - s_p.long()).abs().max()),
                  int((tb_k.int() - tb_p.int()).abs().max()))
     err_tb = max(int((pk_k.long() - pk_p.long()).abs().max()),
@@ -653,6 +695,10 @@ def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str,
     B = q.shape[0]
     shape = (f"B={B} Lq={q.shape[1]} Lt={t.shape[1]} r={r} "
              f"W={width(r)} tb={tuple(tb_k.shape)}")
+    if kernel == "diag":
+        from claragenomicsanalysis_tpu_torch.ops import nw_diag
+        shape += (" plan " + "/".join(map(str, nw_diag.nw_diag_plan(
+            q.shape[1], t.shape[1], r))))
     print(f"{tag} kernels ({shape}): {name_nw} kernel {ms_nw:.3f} ms vs "
           f"plain {ms_nw_plain:.1f} ms (all {B} problems), scores+tb max "
           f"diff {err_nw}; {name_tb} kernel {ms_tb:.3f} ms vs plain "
@@ -1056,7 +1102,7 @@ def phase_c8_align(sm_mhz: float) -> dict:
     for (name, algorithm), (q, qlen, t, tlen, r) in largest.items():
         kernel = "row" if name == "nw_row" else "diag"
         Lq, Lt = q.shape[1], t.shape[1]
-        plan = (nw_diag.nw_diag_variant(Lq, Lt, r) if kernel == "diag"
+        plan = (nw_diag.nw_diag_plan(Lq, Lt, r)[0] if kernel == "diag"
                 else nw_row.nw_row_plan(Lq, Lt, r))
         check("device" in plan, f"C8 {algorithm}: {name}'s largest launch "
               f"(r={r}, Lq={Lq}, Lt={Lt}) is not on device memory: {plan}")
@@ -1329,12 +1375,13 @@ def phase_poa_kernels() -> int:
     the batch holds an empty window, an empty first sequence, N bases, a
     first sequence over max_nodes_per_window and a 2-node graph against 60
     bases.  Then B10 on the same windows, with and without the MSA, against
-    the lockstep loop over the plain versions: its six outputs equal."""
+    the lockstep loop over the plain versions in each of its plans
+    (WINDOW_PLANS) and on 8-byte plane words: its six outputs equal."""
     import numpy as np
     import torch
     from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
                                                              PoaScores)
-    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    from claragenomicsanalysis_tpu_torch.ops import poa_nwtb, poa_window
     errs = {}
     for banded in (False, True):
         bs = BatchSize(**POA_CAPS, band_width=16 if banded else 256)
@@ -1366,21 +1413,55 @@ def phase_poa_kernels() -> int:
               "the band status")
         err_w = 0
         dev = [torch.from_numpy(a).cuda() for a in arrays]
-        for msa in (False, True):
-            args = (*dev, bs, PoaScores(), banded, msa)
-            got = poa_window.poa_window(*args)
-            torch.cuda.synchronize()
-            err_w = max(err_w, maxdiff(got,
-                                       poa_window.poa_window_torch(*args)))
-            if msa:     # and the lockstep kernels gave the same six
-                err_w = max(err_w, maxdiff(got, out[:6]))
-        print(f"phase 10 poa_window ({kind}): B10's six outputs, with and "
+        for sc in (PoaScores(), PoaScores(*WIDE_SCORES)):
+            for msa in (False, True):
+                args = (*dev, bs, sc, banded, msa)
+                want = poa_window.poa_window_torch(*args)
+                for variant, ring in WINDOW_PLANS:
+                    with window_forced(variant, ring):
+                        word = poa_nwtb.nwtb_word_bytes(bs.padded_nodes, L,
+                                                        sc)
+                        plan = poa_window.window_plan(
+                            64, bs, bs.band_width if banded else 0, word)
+                        check(plan[::2] == (variant, ring)
+                              and word == (4 if sc == PoaScores() else 8),
+                              f"B10 got the plan {plan}, {word}-byte words")
+                        got = poa_window.poa_window(*args)
+                        torch.cuda.synchronize()
+                    err_w = max(err_w, maxdiff(got, want))
+                    if msa and sc == PoaScores():   # and the lockstep
+                        err_w = max(err_w, maxdiff(got, out[:6]))
+        print(f"phase 10 poa_window ({kind}): B10's six outputs in each "
+              f"plan {WINDOW_PLANS}, 4- and 8-byte plane words, with and "
               f"without the MSA, vs the lockstep loop over the plain "
               f"versions (and vs the lockstep kernels), max diff {err_w}")
         check(err_w == 0, "the one-kernel-per-window POA disagrees with its "
               "plain version")
         errs[banded] = max(probed["err"], err_w)
     return max(errs.values())
+
+
+#: scores whose graph-NW cells pass the 24 bits of a 4-byte plane word
+#: at the smoke's small shapes (phase 10's N + L + 1 = 169 too): (match,
+#: mismatch, gap)
+WIDE_SCORES = (40_000, -30_000, -40_000)
+#: B10's plans held in phase 10: (variant, ring depth)
+WINDOW_PLANS = (("warp", 8), ("block", 8), ("warp", 2), ("block", 0))
+
+
+@contextlib.contextmanager
+def window_forced(variant: str, ring: int):
+    """Inside the block ops.poa_window.window_plan gives launches of any
+    window count the ``variant`` asked for (BLOCK_WINDOWS 0: warp where a
+    row fits; a million: block) and a ring of at most ``ring`` rows."""
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    saved = poa_window.BLOCK_WINDOWS, poa_window.RING_ROWS
+    poa_window.BLOCK_WINDOWS = 0 if variant == "warp" else 1 << 20
+    poa_window.RING_ROWS = ring
+    try:
+        yield
+    finally:
+        poa_window.BLOCK_WINDOWS, poa_window.RING_ROWS = saved
 
 
 #: B5 edge batches: (BatchSize keywords, banded, variant, ring depth,
@@ -1406,9 +1487,9 @@ NWTB_VARIANTS = (
     (dict(max_sequence_size=100, max_sequences_per_poa=5,
           max_pred_per_node=72), False, "warp", 8, None),
     (dict(max_sequence_size=100, max_sequences_per_poa=5), False, "warp", 8,
-     (20_000, -15_000, -20_000)),
+     WIDE_SCORES),
     (dict(max_sequence_size=100, max_sequences_per_poa=5, band_width=24),
-     True, "block", 8, (20_000, -15_000, -20_000)),
+     True, "block", 8, WIDE_SCORES),
 )
 
 
@@ -1835,7 +1916,7 @@ def phase_poa_window(tag: str, ref: dict, sm_mhz: float) -> dict:
             r["kt"].largest.clear()
         runs.append((kernel, r))
     run = runs[1][1]
-    chunks = poa.launch_chunks(n, bs, msa)
+    chunks = poa.launch_chunks(n, bs, msa, kernel="window")
     want = dict.fromkeys(POA_KERNELS, 0) | {"poa_window": len(chunks)}
     check(run["launches"] == want,
           f"{tag}: launches {run['launches']} != {want}")
@@ -1843,13 +1924,17 @@ def phase_poa_window(tag: str, ref: dict, sm_mhz: float) -> dict:
                for k in ("cons", "covs", "stats", "msas"))
     dev_ms = run["kt"].ms()["poa_window"]
     each = [s.elapsed_time(e) for s, e in run["kt"].events["poa_window"]]
+    bw = bs.band_width if banded else 0
+    plan = poa_window.window_plan(len(chunks[0]), bs, bw)
     walls = ", ".join(f"{k} {r['wall'] * 1e3:.1f} ms = {n / r['wall']:.1f} "
                       f"windows/s" for k, r in runs)
     what = "get_consensus + get_msa" if msa else "get_consensus"
     print(f"{tag} kernel=\"window\" ({what}): {n} windows, BatchSize("
           f"{', '.join(f'{k}={v}' for k, v in ref['cfg'].items())}), "
           f"{len(chunks)} launches of windows ({[len(c) for c in chunks]}), "
-          f"{poa_window.window_smem_bytes(bs)} B of shared memory a block; "
+          f"plan {plan}, {poa_window.window_smem_bytes(bs, bw)} B of shared "
+          f"memory and {poa_window.window_scratch_bytes(bs)} B of device "
+          f"scratch a window; "
           f"consensus, coverage, statuses{', MSA rows' * msa} equal the "
           f"lockstep route's: {same}")
     print(f"{tag} walls in turns on the same windows: {walls}; B10 "
@@ -1880,36 +1965,24 @@ def phase_poa_window(tag: str, ref: dict, sm_mhz: float) -> dict:
           f"{nbytes} B (inputs and outputs) -> {b[0]:.4f} ms ({b[1]})")
     check(err == 0, f"{tag}: poa_window disagrees with its plain version at "
           f"its largest launch")
-    return {"poa_window": {"shape": shape, "ms": ms, "plain_ms": ms_p,
-                           "bound": b, "err": err,
+    # and in the plan this launch does not take
+    mine = poa_window.window_plan(W, bs, bw)[0]
+    other = "block" if mine == "warp" else "warp"
+    with window_forced(other, poa_window.RING_ROWS):
+        ms_o, out_o = cuda_ms(lambda: poa_window.poa_window(*args), 5)
+    err_o = maxdiff(out_o, out_p)
+    print(f"{tag} poa_window: the same launch as a {other} a window "
+          f"(forced; the plan takes a {mine}): {ms_o:.3f} ms, max diff "
+          f"{err_o} vs the plain version")
+    check(err_o == 0, f"{tag}: poa_window as a {other} a window disagrees "
+          f"with its plain version")
+    variant = {"variant": f"{tag}: a {other} a window (forced)",
+               "shape": shape, "ms": ms_o, "plain_ms": ms_p, "bound": b,
+               "err": err_o}
+    return {"poa_window": {"shape": shape + f" plan {mine}", "ms": ms,
+                           "plain_ms": ms_p, "bound": b, "err": err,
                            "launches": run["launches"]["poa_window"],
-                           "run_ms": dev_ms}}
-
-
-def phase_poa_window_refuses(tag: str, cfg: dict) -> None:
-    """The window route at a shape whose graph does not fit a block's shared
-    memory: the wrapper must refuse it and name the sizes."""
-    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
-    from claragenomicsanalysis_tpu_torch.models import poa
-    from claragenomicsanalysis_tpu_torch.ops import poa_window
-    bs = BatchSize(**cfg)
-    need = poa_window.window_smem_bytes(bs)
-    batch = poa.create_batch(bs, max_poas=1, device="cuda", kernel="window")
-    batch.add_poa_group(["ACGT" * 8, "ACGT" * 8])
-    zero_launches()
-    try:
-        batch.get_consensus()
-    except ValueError as e:
-        said = str(e)
-    else:
-        raise SmokeFailure(f"{tag}: a plan of {need} B of shared memory "
-                           f"was not refused")
-    check(str(need) in said and "shared memory" in said
-          and read_launches(POA_KERNELS)["poa_window"] == 0,
-          f"{tag}: the refusal does not name the sizes: {said}")
-    print(f"{tag} kernel=\"window\" at BatchSize("
-          f"{', '.join(f'{k}={v}' for k, v in cfg.items())}): refused, "
-          f"nothing launched: {said}")
+                           "run_ms": dev_ms}}, variant
 
 
 def phase_row(pairs, ukk, myers_results, sm_mhz: float) -> dict:
@@ -2013,7 +2086,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
 
     sm_mhz = phase_env()
-    errs = phase_kernels(np.random.default_rng(SEED))
+    errs, b1_plans = phase_kernels(np.random.default_rng(SEED), sm_mhz)
     phase_golden()
     t0 = time.perf_counter()
     pairs = main_path_pairs(N_PAIRS, SEED)
@@ -2033,19 +2106,21 @@ def main() -> int:
     phase_poa_cli()
     paths["poa"], corr = phase_poa_main("phase 12", POA_CORR, N_POA, 128,
                                         max(5, 128 // 20), False, sm_mhz)
-    paths["poa_deep"], _ = phase_poa_main("phase 13", POA_DEEP, N_POA_DEEP,
-                                          256, 12, True, sm_mhz)
+    paths["poa_deep"], deep = phase_poa_main("phase 13", POA_DEEP,
+                                             N_POA_DEEP, 256, 12, True,
+                                             sm_mhz)
     paths["poa_msa"], msa = phase_poa_main("phase 14", POA_MSA, N_POA, 100,
                                            max(5, 100 // 20), False, sm_mhz,
                                            msa=True)
-    paths["poa_window_msa"] = phase_poa_window("phase 15 (MSA shape)", msa,
-                                               sm_mhz)
-    paths["poa_window"] = phase_poa_window("phase 15 (correction shape)",
-                                           corr, sm_mhz)
-    phase_poa_window_refuses("phase 15 (deep shape)", POA_DEEP)
+    b10_plans = []
+    for key, tag, ref in (("poa_window_msa", "phase 15 (MSA shape)", msa),
+                          ("poa_window", "phase 15 (correction shape)", corr),
+                          ("poa_window_deep", "phase 15 (deep shape)", deep)):
+        paths[key], forced = phase_poa_window(tag, ref, sm_mhz)
+        b10_plans.append(forced)
     paths["ukkonen_row"] = phase_row(pairs, ukk, myers_results[:N_SUBSET],
                                      sm_mhz)
-    variants = {"myers": [c9]}
+    variants = {"myers": [c9], "nw_diag": b1_plans, "poa_window": b10_plans}
     for more in (phase_c8_align(sm_mhz), phase_c8_poa(sm_mhz)):
         for k, v in more.items():
             variants.setdefault(k, []).extend(v)
@@ -2133,107 +2208,50 @@ def main() -> int:
 # Run by hand on the card; the smoke (no arguments) runs neither.
 #
 #   python3 chip_smoke.py --nwtb-split
-#     Where the graph NW's time goes: forward pass, end cell and traceback,
-#     timed with clock64() stamps, for B5's first design (cga::nwtb_block in
-#     csrc/poa_nwtb.cuh, the device function B10 still runs, in a
-#     one-block-a-window kernel) and for B5 as it stands (csrc/poa_nwtb.cu,
-#     with the row's own parts too: setup, pass 1, scan, pass 2, the next
-#     row's facts, sync and copy).  It writes stamped copies of the sources
-#     into build/nwtb_split/ (string edits at named anchors; an edit to
-#     those sources that moves an anchor makes it raise), compiles them, and
-#     runs both on the graph-NW inputs of the last add of a lockstep run at
-#     the deep, correction and MSA shapes (this script's data and seed); B5
-#     as it stands also in the variant its plan does not pick.  Per shape
-#     it prints each kernel's time, the cycles of each part per window, the
-#     cycles a row and a walk step, and how many ranks back the preds lie.
-#     (A stamped kernel runs a little slower than the kernel itself.)
+#     Where B5's time goes: forward pass, end cell and traceback, and the
+#     row's own parts (setup, pass 1, scan, pass 2, the next row's facts,
+#     sync and copy), timed with clock64() stamps.  It writes stamped copies
+#     of csrc/poa_nwtb.cuh and csrc/poa_nwtb.cu into build/nwtb_split/
+#     (string edits at named anchors; an edit to those sources that moves
+#     an anchor makes it raise), compiles them, and runs B5 on the graph-NW
+#     inputs of the last add of a lockstep run at the deep, correction and
+#     MSA shapes (this script's data and seed), in its plan's variant and
+#     in the other one.  Per shape it prints each variant's time, the
+#     cycles of each part per window, the cycles a row and a walk step, and
+#     how many ranks back the preds lie.  (A stamped kernel runs a little
+#     slower than the kernel itself.)
+#
+#   python3 chip_smoke.py --window-split
+#     Where B10's time goes: csrc/poa_window.cu built with CGA_WINDOW_SPLIT
+#     (thread 0 of each window sums the SM cycles of setup, topsort, the
+#     graph NW's forward pass, end cell and walk, the add, the final
+#     topsort, the consensus and the MSA) into build/window_split/, run at
+#     the window route's first launch of the correction, MSA and deep
+#     shapes, in its plan and in the other one; outputs checked equal to
+#     the kernel's.  Per shape and plan it prints the stamped time, each
+#     phase's cycles a window and share, and the cycles of a graph-NW row,
+#     an add and a topsort.
 #
 #   python3 chip_smoke.py --turns PARENT_DIR
-#     B1 (nw_diag), B3 (nw_row), B7 (poa_topsort) and B8 (poa_consensus) of
-#     this checkout against the same kernels built from another checkout
-#     (the parent commit, unpacked with git archive), on identical inputs,
-#     in their shared-memory variants: B1 and B3 on 449 pairs of 10,000-base
-#     queries at r = 72 (the ukkonen_row path's largest launch), B7 and B8
-#     at the last launch of a lockstep run at the correction, deep and MSA
-#     shapes.  Both builds' outputs are checked equal, then each kernel is
+#     B1 (nw_diag), B3 (nw_row), B7 (poa_topsort), B5 (poa_nwtb), B8
+#     (poa_consensus) and B10 (poa_window) of this checkout against the same
+#     kernels built from another checkout (the parent commit, unpacked with
+#     git archive), on identical inputs, each in its plan: B1 and B3 on 449
+#     pairs of 10,000-base queries at r = 72 (the ukkonen_row path's
+#     largest launch), B7, B5 and B8 at the last launch of a lockstep run at
+#     the correction, deep and MSA shapes, B10 at the window route's first
+#     launch at the correction and MSA shapes (the parent's refuses the
+#     deep one).  Both builds' outputs are checked equal, then each kernel is
 #     timed parent, this, this, parent, TURNS_ROUNDS times, TURNS_REPS
 #     launches a sample; the medians print with the card's name and power
 #     limit.
 
-SPLIT_KERNEL = r'''
-#include "poa_nwtb_clk.cuh"
-__global__ void split_kernel(
-    const int32_t* seq, const int32_t* order, const int32_t* rank,
-    const int32_t* npred, const int32_t* base, const int32_t* nsucc,
-    const int32_t* pred, const int32_t* slens, const int32_t* node_counts,
-    const int32_t* alive, int32_t* planes, int32_t* pn, int32_t* pp,
-    int32_t* k0s, int32_t* band_oks, long long* clk, int N, int P, int L,
-    int match, int mismatch, int g, int band_width) {
-  extern __shared__ __align__(16) int32_t smem[];
-  const int w = blockIdx.x;
-  const int TL = N + L;
-  int32_t* pnw = pn + (size_t)w * TL;
-  int32_t* ppw = pp + (size_t)w * TL;
-  for (int i = threadIdx.x; i < TL; i += blockDim.x) pnw[i] = ppw[i] = -2;
-  if (!alive[w]) return;
-  const size_t wn = (size_t)w * N;
-  cga::nwtb_block(seq + (size_t)w * L, order + wn, rank + wn, npred + wn,
-                  base + wn, nsucc + wn, pred + wn * P, slens[w],
-                  node_counts[w], planes + (size_t)w * (N + 1) * (L + 1),
-                  pnw, ppw, N, P, L, match, mismatch, g, band_width, smem,
-                  k0s + w, band_oks + w, clk + 8 * w);
-}
-extern "C" int split_launch(void** a, int W, int N, int P, int L, int match,
-                            int mismatch, int g, int bw, void* stream) {
-  const int threads = cga::nwtb_threads(L);
-  const int smem = 4 * (int)cga::nwtb_scratch_ints(N, P, L);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(split_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  split_kernel<<<W, threads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)a[0], (const int32_t*)a[1], (const int32_t*)a[2],
-      (const int32_t*)a[3], (const int32_t*)a[4], (const int32_t*)a[5],
-      (const int32_t*)a[6], (const int32_t*)a[7], (const int32_t*)a[8],
-      (const int32_t*)a[9], (int32_t*)a[10], (int32_t*)a[11],
-      (int32_t*)a[12], (int32_t*)a[13], (int32_t*)a[14], (long long*)a[15],
-      N, P, L, match, mismatch, g, bw);
-  return (int)cudaGetLastError();
-}
-'''
-
-
-def split_stamped_header() -> str:
-    from claragenomicsanalysis_tpu_torch.ops import _build
-    """poa_nwtb.cuh with clk[0..3] stamped after the staging, after the
-    rows, after the end cell and at the walk's end (clk[4]: its steps)."""
-    src = open(os.path.join(_build.CSRC, "poa_nwtb.cuh")).read()
-    edits = [
-        ("int32_t* __restrict__ band_ok_out) {",
-         "int32_t* __restrict__ band_ok_out, long long* clk) {"),
-        ("  __syncthreads();\n\n  const int ncol = slen + 1;",
-         "  __syncthreads();\n  if (tid == 0) clk[0] = clock64();\n\n"
-         "  const int ncol = slen + 1;"),
-        ("  // end cell: the best sink",
-         "  if (tid == 0) clk[1] = clock64();\n  // end cell: the best sink"),
-        ("  const bool ok = vmax > kNeg / 2;",
-         "  if (tid == 0) clk[2] = clock64();\n"
-         "  const bool ok = vmax > kNeg / 2;"),
-        ("  if (lane == 0) *k0_out = k;\n}",
-         "  if (lane == 0) {\n    *k0_out = k;\n    clk[3] = clock64();\n"
-         "    clk[4] = TL - k;\n  }\n}"),
-    ]
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"poa_nwtb.cuh changed: {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
-#: stamps added to csrc/poa_nwtb.cu: per window clk[0..4] as the first
-#: design's, clk[5..10] the row's parts summed over its rows
-SPLIT_EDITS = [
-    ("template <typename Word>\nstruct Window {\n",
-     "__device__ long long* g_clk;\ntemplate <typename Word>\n"
+#: stamps added to csrc/poa_nwtb.cuh: per window clk[0..3] the starts of
+#: the forward pass, the end cell, the walk and its end, clk[4] the walk's
+#: steps, clk[5..10] the row's parts summed over its rows
+SPLIT_HEADER_EDITS = [
+    ("template <typename Word, bool kLdg>\nstruct Window {\n",
+     "__device__ long long* g_clk;\ntemplate <typename Word, bool kLdg>\n"
      "struct Window {\n  long long* clk;\n"),
     ("  for (int r = 0; r < w.nce; ++r) {\n    const int ri = r + 1;",
      "  if (gt == 0) w.clk[0] = clock64();\n"
@@ -2265,6 +2283,9 @@ SPLIT_EDITS = [
      "  w.clk[2] = clock64();\n"),
     ("  *k0_out = k;\n}", "  *k0_out = k;\n  w.clk[3] = clock64();\n"
      "  w.clk[4] = TL - k;\n}"),
+]
+#: and to csrc/poa_nwtb.cu: each window's clk, and the launcher's names
+SPLIT_EDITS = [
     ("  win.nce = min(max(win.nc, 0), d.N);",
      "  win.nce = min(max(win.nc, 0), d.N);\n  win.clk = g_clk + 16 * w;"),
     ('extern "C" int cga_poa_nwtb(',
@@ -2286,20 +2307,17 @@ def split_build() -> ctypes.CDLL:
     from claragenomicsanalysis_tpu_torch.ops import _build
     out = os.path.join(ROOT, "build", "nwtb_split")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "poa_nwtb_clk.cuh"), "w") as f:
-        f.write(split_stamped_header())
-    with open(os.path.join(out, "split.cu"), "w") as f:
-        f.write(SPLIT_KERNEL)
-    with open(os.path.join(out, "current.cu"), "w") as f:
-        src = open(os.path.join(_build.CSRC, "poa_nwtb.cu")).read()
-        f.write(split_stamped(src, SPLIT_EDITS))
+    for name, edits in (("poa_nwtb.cuh", SPLIT_HEADER_EDITS),
+                        ("poa_nwtb.cu", SPLIT_EDITS)):
+        with open(os.path.join(out, name), "w") as f:
+            src = open(os.path.join(_build.CSRC, name)).read()
+            f.write(split_stamped(src, edits))
     so = os.path.join(out, "libsplit.so")
+    # the stamped .cu finds the stamped header beside it first
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                    "-shared", "-o", so, os.path.join(out, "split.cu"),
-                    os.path.join(out, "current.cu")], check=True)
+                    "-shared", "-o", so, os.path.join(out, "poa_nwtb.cu")],
+                   check=True)
     lib = ctypes.CDLL(so)
-    lib.split_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
     lib.stamped_poa_nwtb.argtypes = [ctypes.c_void_p] * 15 + [
         ctypes.c_int] * 13 + [ctypes.c_void_p]
     lib.set_clk.argtypes = [ctypes.c_void_p]
@@ -2307,7 +2325,7 @@ def split_build() -> ctypes.CDLL:
 
 
 def split_measure(lib, tag: str, cfg: dict, n: int, blen: int, edits: int,
-            banded: bool) -> None:
+                  banded: bool) -> None:
     import numpy as np
     import torch
     from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
@@ -2342,32 +2360,7 @@ def split_measure(lib, tag: str, cfg: dict, n: int, blen: int, edits: int,
     bufs += [torch.empty((W, N + L), dtype=torch.int32, device=dev)
              for _ in range(2)]
     bufs += [torch.empty(W, dtype=torch.int32, device=dev) for _ in range(2)]
-    clk = torch.zeros((W, 8), dtype=torch.int64, device=dev)
-    bufs.append(clk)
-    ptrs = (ctypes.c_void_p * len(bufs))(*(t.data_ptr() for t in bufs))
-
-    def go():
-        err = lib.split_launch(ptrs, W, N, P, L, sc.match_score,
-                               sc.mismatch_score, sc.gap_score, bw,
-                               torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"split_launch: CUDA error {err}")
-
-    ms, _ = cuda_ms(go, 5)
-    c = clk.cpu().numpy().astype(np.float64)
-    live = alive.cpu().numpy() & (c[:, 3] > 0)
-    fwd, end, walk = (c[live, 1] - c[live, 0], c[live, 2] - c[live, 1],
-                      c[live, 3] - c[live, 2])
-    tot = (fwd + end + walk).sum()
-    rows = nc.cpu().numpy()[live]
-    print(f"{tag}: W={W} N={N} L={L} P={P} band={bw}: first design "
-          f"{ms:.3f} ms; cycles "
-          f"a window: forward {fwd.mean():.0f} ({fwd.sum() / tot:.3f}), end "
-          f"cell {end.mean():.0f} ({end.sum() / tot:.3f}), walk "
-          f"{walk.mean():.0f} ({walk.sum() / tot:.3f}); "
-          f"{(fwd / rows).mean():.1f} a row over {rows.mean():.1f} rows, "
-          f"{(walk / c[live, 4]).mean():.1f}"
-          f" a walk step over {c[live, 4].mean():.1f} steps")
+    live = alive.cpu().numpy()
     # B5 as it stands, in its plan's variant and in the other one
     W_, N_, P_ = W, N, P
     plan = poa_nwtb.nwtb_plan(W_, N_, P_, L, bw)
@@ -2442,15 +2435,121 @@ def nwtb_split_main() -> int:
     return 0
 
 
+#: the phases of B10's split build (csrc/poa_window.cu built with
+#: CGA_WINDOW_SPLIT): thread 0 of each window sums the SM cycles of each
+#: into slots 0-8; slot 9 holds the sequences added, slot 10 the graph-NW
+#: rows
+WINDOW_SPLIT_PHASES = ("setup", "topsort", "NW forward", "NW end cell",
+                       "walk", "add", "final topsort", "consensus", "MSA")
+
+
+def window_split_build() -> ctypes.CDLL:
+    """csrc/poa_window.cu built with CGA_WINDOW_SPLIT into
+    build/window_split/: the same launcher, which also writes each
+    window's record."""
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    out = os.path.join(ROOT, "build", "window_split")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "libwindow_split.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DCGA_WINDOW_SPLIT",
+                    "-I", str(_build.CSRC), "-shared", "-o", so,
+                    str(_build.CSRC / "poa_window.cu")], check=True)
+    lib = ctypes.CDLL(so)
+    lib.cga_poa_window.argtypes = list(_build.SIGNATURES["cga_poa_window"])
+    lib.cga_poa_window.restype = ctypes.c_int
+    lib.cga_poa_window_split_set.argtypes = [ctypes.c_void_p] * 2
+    lib.cga_poa_window_split_set.restype = ctypes.c_int
+    lib.cga_error_string = _build.load().cga_error_string
+    return lib
+
+
+def window_split_measure(lib, tag: str, cfg: dict, n: int, blen: int,
+                         edits: int, banded: bool, msa: bool) -> None:
+    """B10's split at the window route's first launch of this script's
+    windows of a shape, in its plan and in the other one: the stamped
+    kernel's time, each phase's cycles a window and share, the cycles of
+    a graph-NW row and of an add; outputs checked equal to the kernel's."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             PoaScores)
+    from claragenomicsanalysis_tpu_torch.models import poa
+    from claragenomicsanalysis_tpu_torch.ops import _build, poa_window
+    bs = BatchSize(**cfg)
+    S, L = bs.max_sequences_per_poa, bs.padded_seq
+    W = len(poa.launch_chunks(n, bs, msa, kernel="window")[0])
+    _, _, arrays = poa_window_arrays(W, blen, S, edits, L, SEED + 20 + S)
+    args = [torch.as_tensor(a).cuda() for a in arrays]
+    sc, bw = PoaScores(), bs.band_width if banded else 0
+    want = poa_window.poa_window(*args, bs, sc, banded, msa)
+    plan = poa_window.window_plan(W, bs, bw)
+    split = torch.zeros((W, 16), dtype=torch.int64, device="cuda")
+    marks = torch.zeros(2 * W * 1024 + 256, dtype=torch.int64, device="cuda")
+    if lib.cga_poa_window_split_set(split.data_ptr(), marks.data_ptr()):
+        raise RuntimeError("cga_poa_window_split_set failed")
+    real = _build.load
+    for variant in (plan[0], "block" if plan[0] == "warp" else "warp"):
+        with window_forced(variant, poa_window.RING_ROWS):
+            got_plan = poa_window.window_plan(W, bs, bw)
+            _build.load = lambda: lib
+            try:
+                ms, got = cuda_ms(
+                    lambda: poa_window.poa_window(*args, bs, sc, banded, msa),
+                    3)
+            finally:
+                _build.load = real
+        check(maxdiff(got, want) == 0, f"{tag}: the split build of B10 "
+              f"disagrees with the kernel")
+        c = split.cpu().numpy().astype(np.float64)
+        phases = c[:, :len(WINDOW_SPLIT_PHASES)]
+        tot = phases.sum()
+        per = phases.mean(0)
+        adds, rows = c[:, 9].sum(), c[:, 10].sum()
+        print(f"{tag}: W={W} N={bs.padded_nodes} L={L} P="
+              f"{bs.max_pred_per_node} S={S}{' msa' * msa}{' banded' * banded}"
+              f", plan {got_plan}{' (the plan)' if variant == plan[0] else ''}"
+              f": {ms:.3f} ms stamped; cycles a window "
+              f"{phases.sum(1).mean():.0f}: " + ", ".join(
+                  f"{k} {v:.0f} ({c_ / tot:.3f})" for k, v, c_ in zip(
+                      WINDOW_SPLIT_PHASES, per, phases.sum(0))) +
+              f"; {c[:, 2].sum() / max(rows, 1):.1f} cycles a graph-NW row "
+              f"({rows / W:.1f} rows a window), "
+              f"{c[:, 5].sum() / max(adds, 1):.1f} an add, "
+              f"{c[:, 1].sum() / max(adds, 1):.1f} a topsort "
+              f"({adds / W:.2f} sequences added a window)")
+
+
+def window_split_main() -> int:
+    """``--window-split``: window_split_measure at the correction, MSA and
+    deep shapes (this script's data and seed)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    lib = window_split_build()
+    window_split_measure(lib, "correction", POA_CORR, N_POA, 128, 6, False,
+                         False)
+    window_split_measure(lib, "msa", POA_MSA, N_POA, 100, 5, False, True)
+    window_split_measure(lib, "deep", POA_DEEP, N_POA_DEEP, 256, 12, True,
+                         False)
+    return 0
+
+
 TURNS_ROUNDS, TURNS_REPS = 5, 5
-#: the parent's launchers (before the device-memory variants took a scratch
-#: pointer and B3 its lane plan)
+#: the parent's launchers (before B1 took its warp plan and B10 its plan,
+#: its graph in device scratch and the packed plane word)
 _TP, _TI = ctypes.c_void_p, ctypes.c_int
 TURNS_PARENT_SIGNATURES = {
-    "cga_nw_diag": (_TP,) * 6 + (_TI,) * 6 + (_TP,),
-    "cga_nw_row": (_TP,) * 6 + (_TI,) * 6 + (_TP,),
-    "cga_poa_topsort": (_TP,) * 8 + (_TI,) * 3 + (_TP,),
-    "cga_poa_consensus": (_TP,) * 10 + (_TI,) * 4 + (_TP,),
+    "cga_nw_diag": (_TP,) * 7 + (_TI,) * 6 + (_TP,),
+    "cga_nw_row": (_TP,) * 7 + (_TI,) * 8 + (_TP,),
+    "cga_poa_topsort": (_TP,) * 9 + (_TI,) * 3 + (_TP,),
+    "cga_poa_nwtb": (_TP,) * 15 + (_TI,) * 13 + (_TP,),
+    "cga_poa_consensus": (_TP,) * 11 + (_TI,) * 4 + (_TP,),
+    "cga_poa_window": (_TP,) * 14 + (_TI,) * 13 + (_TP,),
 }
 
 
@@ -2508,7 +2607,8 @@ def turns_banded_pairs(cur, par):
     B, Lq = q.shape
     Lt = t.shape[1]
     out = []
-    assert nw_diag.nw_diag_variant(Lq, Lt, r) == "shared"
+    plan = nw_diag.nw_diag_plan(Lq, Lt, r)
+    assert plan[0] == "warp-shared"
     Wd, Dpad = nw_diag.band_slots(r), nw_diag.padded_diagonals(Lq, Lt)
     sd = [torch.empty(B, dtype=torch.int32, device="cuda"),
           torch.empty((Dpad // 4, B, Wd), dtype=torch.int8, device="cuda")]
@@ -2516,17 +2616,19 @@ def turns_banded_pairs(cur, par):
 
     def diag_cur():
         err = cur.cga_nw_diag(*turns_ptrs(q, qlen, t, tlen, *sd), None, B, Lq,
-                              Lt, r, Wd, Dpad, turns_stream())
+                              Lt, r, Wd, Dpad, plan[1], plan[2], 1,
+                              turns_stream())
         turns_checked("nw_diag", err)
         return sd
 
     def diag_par():
-        err = par.cga_nw_diag(*turns_ptrs(q, qlen, t, tlen, *sd2), B, Lq, Lt,
-                              r, Wd, Dpad, turns_stream())
+        err = par.cga_nw_diag(*turns_ptrs(q, qlen, t, tlen, *sd2), None, B,
+                              Lq, Lt, r, Wd, Dpad, turns_stream())
         turns_checked("nw_diag", err)
         return sd2
 
-    out.append((f"B1 nw_diag B={B} Lq={Lq} r={r}", diag_cur, diag_par))
+    out.append((f"B1 nw_diag B={B} Lq={Lq} r={r} (this: {plan})", diag_cur,
+                diag_par))
     variant, cpt, groups, _ = nw_row.nw_row_plan(Lq, Lt, r)
     assert variant == "shared"
     Wr, R4 = nw_row.band_width_row(r), nw_row.tb_rows(Lq)
@@ -2541,8 +2643,8 @@ def turns_banded_pairs(cur, par):
         return sr
 
     def row_par():
-        err = par.cga_nw_row(*turns_ptrs(q, qlen, t, tlen, *sr2), B, Lq, Lt, r,
-                             Wr, R4, turns_stream())
+        err = par.cga_nw_row(*turns_ptrs(q, qlen, t, tlen, *sr2), None, B, Lq,
+                             Lt, r, Wr, R4, cpt, groups, turns_stream())
         turns_checked("nw_row", err)
         return sr2
 
@@ -2550,15 +2652,29 @@ def turns_banded_pairs(cur, par):
     return out
 
 
-def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded):
-    """B7 and B8 at the last launch of a lockstep run of these windows."""
+def turns_parent_window_smem(bs) -> int:
+    """The parent's B10 shared memory a window (its graph, level, order and
+    rank, and a scratch region for the largest phase), which its launcher
+    checks."""
+    N, L, MC = bs.padded_nodes, bs.padded_seq, bs.max_consensus_size
+    P, A = bs.max_pred_per_node, bs.max_aligned_per_node
+    return 4 * (N * (8 + 2 * P + A)
+                + max(2 * N, L + 3 * N + N * P, 6 * N + N * P + MC))
+
+
+def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
+    """B7, B5 and B8 at the last launch of a lockstep run of these windows,
+    and B10 at the window route's first launch of them (where the parent's
+    fits a block: not at the deep shape)."""
     import torch
     from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
                                                              PoaScores)
-    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus,
+    from claragenomicsanalysis_tpu_torch.models import poa
+    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_nwtb,
                                                      poa_topsort, poa_window)
     seen = {}
-    orig = {k: getattr(poa_window, k) for k in ("topsort", "consensus")}
+    orig = {k: getattr(poa_window, k)
+            for k in ("topsort", "consensus", "graph_nw_traceback")}
 
     def spy(k):
         def run(*args):
@@ -2592,8 +2708,8 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded):
         return ts
 
     def topo_par():
-        err = par.cga_poa_topsort(*turns_ptrs(level, npred, pred, nc, *ts2), W,
-                                  N, P, turns_stream())
+        err = par.cga_poa_topsort(*turns_ptrs(level, npred, pred, nc, *ts2),
+                                  None, W, N, P, turns_stream())
         turns_checked("topsort", err)
         return ts2
 
@@ -2612,14 +2728,80 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded):
         return co
 
     def cons_par():
-        err = par.cga_poa_consensus(*turns_ptrs(*cin, *co2), W, N, P, MC,
-                                    turns_stream())
+        err = par.cga_poa_consensus(*turns_ptrs(*cin, *co2), None, W, N, P,
+                                    MC, turns_stream())
         turns_checked("consensus", err)
         return co2
 
     shape = f"W={W} N={N} P={P}"
-    return [(f"B7 poa_topsort {tag} {shape}", topo_cur, topo_par),
-            (f"B8 poa_consensus {tag} {shape} MC={MC}", cons_cur, cons_par)]
+    out = [(f"B7 poa_topsort {tag} {shape}", topo_cur, topo_par),
+           (f"B8 poa_consensus {tag} {shape} MC={MC}", cons_cur, cons_par)]
+
+    # B5, in its plan (its body now in poa_nwtb.cuh)
+    *nin, sc, bw = seen["graph_nw_traceback"]
+    nin = [x.contiguous() for x in nin[:9]] + [nin[9].to(torch.int32)]
+    Ln = nin[0].shape[1]
+    word = poa_nwtb.nwtb_word_bytes(N, Ln, sc)
+    variant, threads, ring = poa_nwtb.nwtb_plan(W, N, P, Ln, bw, word)
+
+    def nw_bufs():
+        return [torch.empty((W, N + 1, Ln + 1), dtype=torch.int32,
+                            device="cuda")] + [
+            torch.empty((W, N + Ln), dtype=torch.int32, device="cuda")
+            for _ in range(2)] + [torch.empty(W, dtype=torch.int32,
+                                              device="cuda")
+                                  for _ in range(2)]
+
+    nb, nb2 = nw_bufs(), nw_bufs()
+
+    def nw_call(lib, bufs):
+        err = lib.cga_poa_nwtb(
+            *turns_ptrs(*nin, *bufs), W, N, P, Ln, sc.match_score,
+            sc.mismatch_score, sc.gap_score, bw, int(variant == "block"),
+            threads, ring, poa_nwtb.ring_width(Ln, bw), word, turns_stream())
+        turns_checked("poa_nwtb", err)
+        return bufs[1:]     # the plane outside the band is never written
+
+    out.insert(1, (f"B5 poa_nwtb {tag} {shape} L={Ln} ({variant})",
+                   lambda: nw_call(cur, nb), lambda: nw_call(par, nb2)))
+
+    # B10 at the window route's first launch
+    smem_par = turns_parent_window_smem(bs)
+    if smem_par > 232_448 - 1024:
+        return out
+    Ww = len(poa.launch_chunks(n, bs, msa, kernel="window")[0])
+    wa = [torch.as_tensor(a[:Ww]).contiguous().cuda() for a in arrays]
+    sc = PoaScores()
+    bw = bs.band_width if banded else 0
+    A, Sw = bs.max_aligned_per_node, bs.max_sequences_per_poa
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pw = [torch.empty((Ww, N + 1, L + 1), **i32)] + [
+        torch.empty((Ww, N + L), **i32) for _ in range(2)] + [
+        torch.empty((Ww, Sw, L), **i32) if msa else None]
+    po = [torch.empty((Ww, MC), **i32) for _ in range(2)] + [
+        torch.empty(Ww, **i32)] + (
+        [torch.empty((Ww, Sw, N), **i32), torch.empty(Ww, **i32)] if msa
+        else [torch.zeros((Ww, Sw, 1), **i32), torch.zeros(Ww, **i32)]) + [
+        torch.empty(Ww, **i32)]
+
+    def win_par():
+        ptr = [t.data_ptr() if t is not None else None for t in pw]
+        err = par.cga_poa_window(
+            *turns_ptrs(*wa), *ptr, *turns_ptrs(*po[:3], po[5]),
+            po[3].data_ptr() if msa else None,
+            po[4].data_ptr() if msa else None, Ww, N, P, A, Sw, L, MC,
+            bs.max_nodes_per_window, sc.match_score, sc.mismatch_score,
+            sc.gap_score, bw, smem_par, turns_stream())
+        turns_checked("poa_window", err)
+        return po
+
+    def win_cur():
+        return poa_window.poa_window(*wa, bs, sc, banded, msa)
+
+    plan = poa_window.window_plan(Ww, bs, bw)
+    out.append((f"B10 poa_window {tag} W={Ww} N={N} L={L} P={P}"
+                f"{' msa' * msa} (this: {plan})", win_cur, win_par))
+    return out
 
 
 def kernel_turns_main(parent: str) -> int:
@@ -2643,7 +2825,7 @@ def kernel_turns_main(parent: str) -> int:
     pairs += turns_poa_pairs(cur, par, "deep", POA_DEEP, N_POA_DEEP, 256,
                              12, True)
     pairs += turns_poa_pairs(cur, par, "msa", POA_MSA, N_POA, 100, 5,
-                             False)
+                             False, msa=True)
     for name, fc, fp in pairs:
         a, b = fc(), fp()
         torch.cuda.synchronize()
@@ -2666,9 +2848,12 @@ def kernel_turns_main(parent: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--nwtb-split"]:
         sys.exit(nwtb_split_main())
+    if sys.argv[1:] == ["--window-split"]:
+        sys.exit(window_split_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--turns":
         sys.exit(kernel_turns_main(sys.argv[2]))
     if len(sys.argv) > 1:
-        sys.exit("usage: python3 chip_smoke.py [--nwtb-split | --turns "
+        sys.exit("usage: python3 chip_smoke.py [--nwtb-split | "
+                 "--window-split | --turns "
                  "PARENT_DIR]")
     sys.exit(main())

@@ -21,4 +21,7 @@ constexpr int kNeg = -(1 << 30);
 constexpr int kInsertion = 2;
 constexpr int kDeletion = 3;
 
+// every lane of a warp, for the *_sync intrinsics
+constexpr unsigned kFull = 0xffffffffu;
+
 }  // namespace cga

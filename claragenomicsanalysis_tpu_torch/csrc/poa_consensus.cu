@@ -58,10 +58,11 @@ __global__ void poa_consensus_kernel(
   int32_t* tables =
       kShared ? smem
               : scratch + (size_t)w * cga::consensus_scratch_ints(N, P, MC);
-  cga::consensus_block(npred + wn, pred + wn * P, predw + wn * P, base + wn,
-                       cov + wn, rank + wn, node_count[w],
-                       codes + (size_t)w * MC, covs + (size_t)w * MC,
-                       lengths + w, N, P, MC, tables);
+  cga::consensus_group<false>(npred + wn, pred + wn * P, predw + wn * P,
+                              base + wn, cov + wn, rank + wn, node_count[w],
+                              codes + (size_t)w * MC, covs + (size_t)w * MC,
+                              lengths + w, N, P, MC, tables, threadIdx.x,
+                              blockDim.x);
 }
 
 }  // namespace

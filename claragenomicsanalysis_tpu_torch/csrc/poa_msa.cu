@@ -44,9 +44,11 @@ __global__ void poa_msa_kernel(
   extern __shared__ __align__(16) int32_t smem[];
   const int w = blockIdx.x;
   const size_t wn = (size_t)w * N;
-  cga::msa_block(order + wn, npred + wn, nalig + wn, base + wn, pred + wn * P,
-                 alig + wn * A, paths + (size_t)w * S * L, node_count[w],
-                 rows + (size_t)w * S * N, n_cols + w, N, P, A, S, L, smem);
+  cga::msa_group<false>(order + wn, npred + wn, nalig + wn, base + wn,
+                        pred + wn * P, alig + wn * A,
+                        paths + (size_t)w * S * L, node_count[w],
+                        rows + (size_t)w * S * N, n_cols + w, N, P, A, S, L,
+                        smem, threadIdx.x, blockDim.x);
 }
 
 }  // namespace

@@ -1,26 +1,26 @@
 // Device function of the MSA, shared by poa_msa.cu (one launch per launch of
-// windows of the lockstep route) and poa_window.cu (the whole POA of a window
-// in one block).  The rules are described in poa_msa.cu.
+// windows of the lockstep route, a block a window) and poa_window.cu (the
+// whole POA of a window in one kernel, a warp or a block a window).  The
+// rules are described in poa_msa.cu.
 #pragma once
 
-#include "common.cuh"
+#include "poa_group.cuh"
 
 namespace cga {
 
-// MSA of the block's window.  order, npred, nalig, base (N), pred (N * P)
-// and alig (N * A) are the final graph, in shared or device memory; paths is
-// (S, L) in device memory; col is N ints of shared scratch.  Writes rows
-// (S, N) and *n_cols_out.  Every thread of the block calls it.
-__device__ inline void msa_block(const int32_t* order, const int32_t* npred,
+// MSA of the group's window (thread tid of nt).  order, npred, nalig, base
+// (N), pred (N * P) and alig (N * A) are the final graph, in shared or
+// device memory; paths is (S, L) in device memory; col is N ints of shared
+// or device scratch.  Writes rows (S, N) and *n_cols_out.  Every thread of
+// the group calls it.
+template <bool kWarp>
+__device__ inline void msa_group(const int32_t* order, const int32_t* npred,
                                  const int32_t* nalig, const int32_t* base,
                                  const int32_t* pred, const int32_t* alig,
                                  const int32_t* paths, int nc, int32_t* rows,
                                  int32_t* n_cols_out, int N, int P, int A,
-                                 int S, int L, int32_t* col) {
-  constexpr unsigned kFull = 0xffffffffu;
-  __shared__ int s_maxcol;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+                                 int S, int L, int32_t* col, int tid,
+                                 int nt) {
   const int lane = tid & 31;
   const int wid = tid >> 5;
   const int nwarps = nt >> 5;
@@ -28,8 +28,7 @@ __device__ inline void msa_block(const int32_t* order, const int32_t* npred,
 
   for (int u = tid; u < N; u += nt) col[u] = -1;
   for (int i = tid; i < S * N; i += nt) rows[i] = -1;
-  if (tid == 0) s_maxcol = -1;
-  __syncthreads();
+  group_sync<kWarp>();
 
   // columns, warp 0: the nodes in rank order; a lane per (member, pred slot)
   if (wid == 0) {
@@ -60,11 +59,21 @@ __device__ inline void msa_block(const int32_t* order, const int32_t* npred,
       __syncwarp();
     }
   }
-  __syncthreads();
+  group_sync<kWarp>();
 
   int m = -1;
   for (int u = tid; u < nce; u += nt) m = max(m, col[u]);
-  atomicMax(&s_maxcol, m);
+  int maxcol;
+  if constexpr (kWarp) {
+    maxcol = __reduce_max_sync(kFull, m);
+  } else {
+    __shared__ int s_maxcol;
+    if (tid == 0) s_maxcol = -1;
+    __syncthreads();
+    atomicMax(&s_maxcol, m);
+    __syncthreads();
+    maxcol = s_maxcol;
+  }
 
   // rows, a warp per sequence, 32 positions at a time in position order;
   // of the lanes that land on one column the last one writes, and a later
@@ -83,8 +92,7 @@ __device__ inline void msa_block(const int32_t* order, const int32_t* npred,
       __syncwarp();
     }
   }
-  __syncthreads();
-  if (tid == 0) *n_cols_out = s_maxcol + 1;
+  if (tid == 0) *n_cols_out = maxcol + 1;
 }
 
 }  // namespace cga

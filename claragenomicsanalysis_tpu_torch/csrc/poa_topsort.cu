@@ -74,8 +74,10 @@ __global__ void poa_topsort_kernel(const int32_t* __restrict__ level_in,
   __syncthreads();
 
   int changed;
-  const int32_t* lv = cga::topsort_levels(la, lb, np, pr, nc, N, P, &changed);
-  cga::topsort_place(lv, nc, N, level_out + off, order + off, rank + off);
+  const int32_t* lv =
+      cga::topsort_levels<false>(la, lb, np, pr, nc, N, P, &changed, tid, nt);
+  cga::topsort_place(lv, nc, N, level_out + off, order + off, rank + off, tid,
+                     nt);
   if (tid == 0) ok[w] = !changed;
 }
 

@@ -18,9 +18,9 @@ versions.  ``kernel`` names which kernels run there, with the same outputs:
 the results.  The MSA (``output_mask`` with ``OutputType.MSA``) costs the
 per-sequence ``paths`` in the graph state and the gapped rows; a
 consensus-only batch carries neither.  Windows go into launches by the
-device bytes each needs (:func:`window_bytes`, mostly the graph NW's score
-plane) under ``POA_MEM_BUDGET``; each window's result does not depend on
-the others, so the cut never changes a result.
+device bytes each needs on the batch's route (:func:`window_bytes`, mostly
+the graph NW's score plane) under ``POA_MEM_BUDGET``; each window's result
+does not depend on the others, so the cut never changes a result.
 """
 
 import itertools
@@ -31,7 +31,7 @@ import torch
 from ..core.config import BatchSize, PoaScores
 from ..core.status import OutputType, StatusType
 from ..ops.poa_nwtb import plane_bytes
-from ..ops.poa_window import poa_window, run_windows
+from ..ops.poa_window import poa_window, run_windows, window_scratch_bytes
 from ..utils.genomeutils import BASES, encode
 from ..utils.graph import DirectedGraph
 from ..utils.profiling import trace_range
@@ -49,26 +49,37 @@ _MSA_CHARS = np.frombuffer((BASES + "-").encode(), dtype=np.uint8)
 
 
 def window_bytes(bs: BatchSize, msa: bool = False,
-                 scores: PoaScores | None = None) -> int:
-    """Device bytes one window holds during a launch, by either route: the
-    graph NW's score plane (in the lockstep kernel's words for these
-    scores), two copies of the graph state (the add writes a new one), the
-    path and the window's sequences; with the MSA also the two states'
-    ``paths`` and the rows."""
+                 scores: PoaScores | None = None,
+                 kernel: str = "lockstep") -> int:
+    """Device bytes one window holds during a launch of ``kernel``: the
+    graph NW's score plane (in the kernels' words for these scores) and
+    the window's sequences and weights, then for ``"lockstep"`` two copies
+    of the graph state (the add writes a new one) and the path, with the
+    MSA also the two states' ``paths``; for ``"window"`` the window's slice
+    of B10's scratch (``ops.poa_window.window_scratch_bytes``: the graph,
+    the path and the phases' tables), with the MSA also its ``paths``.
+    Both count the MSA's rows."""
     N, L, S = bs.padded_nodes, bs.padded_seq, bs.max_sequences_per_poa
     P, A = bs.max_pred_per_node, bs.max_aligned_per_node
+    total = plane_bytes(N, L, scores) + 8 * S * L
+    if kernel == "window":
+        total += window_scratch_bytes(bs)
+        if msa:
+            total += 4 * S * L + 4 * S * N
+        return total
     state = 4 * N * (6 + 2 * P + A)
-    total = plane_bytes(N, L, scores) + 2 * state + 8 * (N + L) + 8 * S * L
+    total += 2 * state + 8 * (N + L)
     if msa:
         total += 2 * 4 * S * L + 4 * S * N
     return total
 
 
 def launch_chunks(n_windows: int, bs: BatchSize, msa: bool = False,
-                  scores: PoaScores | None = None) -> list[range]:
-    """Windows 0..n_windows-1 cut into successive launches, each within
-    POA_MEM_BUDGET (a launch holds at least one window)."""
-    n = max(1, POA_MEM_BUDGET // window_bytes(bs, msa, scores))
+                  scores: PoaScores | None = None,
+                  kernel: str = "lockstep") -> list[range]:
+    """Windows 0..n_windows-1 cut into successive launches of ``kernel``,
+    each within POA_MEM_BUDGET (a launch holds at least one window)."""
+    n = max(1, POA_MEM_BUDGET // window_bytes(bs, msa, scores, kernel))
     return [range(s, min(s + n, n_windows)) for s in range(0, n_windows, n)]
 
 
@@ -172,7 +183,7 @@ class Batch:
         arrays = [torch.from_numpy(a).to(self.device)
                   for a in self._pack_arrays()]
         for c in launch_chunks(len(self._groups), self.batch_size, self._msa,
-                               self.scores):
+                               self.scores, self.kernel):
             yield tuple(a[c.start:c.stop] for a in arrays)
 
     def generate_poa(self) -> None:

@@ -36,7 +36,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 #: argtypes of every launcher: a pointer or the stream is c_void_p, an int
 #: c_int (ctypes would otherwise pass a pointer as a 32-bit int)
 SIGNATURES = {
-    "cga_nw_diag": (_PTR,) * 7 + (_INT,) * 6 + (_PTR,),
+    "cga_nw_diag": (_PTR,) * 7 + (_INT,) * 9 + (_PTR,),
     "cga_tb_decode_diag": (_PTR,) * 5 + (_INT,) * 5 + (_PTR,),
     "cga_nw_row": (_PTR,) * 7 + (_INT,) * 8 + (_PTR,),
     "cga_tb_decode_row": (_PTR,) * 5 + (_INT,) * 5 + (_PTR,),
@@ -46,7 +46,7 @@ SIGNATURES = {
     "cga_poa_add": (_PTR,) * 17 + (_INT,) * 8 + (_PTR,),
     "cga_poa_consensus": (_PTR,) * 11 + (_INT,) * 4 + (_PTR,),
     "cga_poa_msa": (_PTR,) * 10 + (_INT,) * 6 + (_PTR,),
-    "cga_poa_window": (_PTR,) * 14 + (_INT,) * 13 + (_PTR,),
+    "cga_poa_window": (_PTR,) * 13 + (_INT,) * 18 + (_PTR,),
 }
 
 

@@ -16,7 +16,7 @@ whose blocks overflow the TPU's scoped VMEM.  A Hopper block has a limit
 too, 227 KB of shared memory, which wide bands pass (a pair whose lengths
 differ by more than 16,384, a Hirschberg base case against a long target,
 long reads): each kernel then runs its device-memory variant, chosen from
-the shapes by ``nw_diag_variant`` / ``nw_row_plan``, never by catching an
+the shapes by ``nw_diag_plan`` / ``nw_row_plan``, never by catching an
 error.  The port has no fallback to another kernel or to a plain version.
 
 Every banded launch of the port, whichever algorithm makes it, is sized by

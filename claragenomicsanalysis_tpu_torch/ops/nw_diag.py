@@ -19,11 +19,15 @@ so either package's traceback decodes with either package's decoder.
   the batch and the band with a Python loop over diagonals.
 - :func:`traceback_paths_diag` decodes a traceback on the host with NumPy.
 
-The kernel has two variants of one body: a block keeps its problem's two
-diagonals, code bytes, query and target in shared memory where
-:func:`nw_diag_smem_bytes` fits a block (``_build.SMEM_PER_BLOCK``), and
-otherwise keeps the diagonals and codes in a device scratch buffer of
-:func:`nw_diag_scratch_bytes` a problem and reads the bases through L1.
+The kernel's plan comes from :func:`nw_diag_plan`: a warp a problem where
+the band has at most 256 slots (K = 1 to 8 slots a lane, several
+problems a block, q and t in shared memory where
+:func:`nw_diag_stage_bytes` of them fit a block, else read through L1);
+for wider bands a block a problem, which keeps its two diagonals, code
+bytes, query and target in shared memory where :func:`nw_diag_smem_bytes`
+fits a block (``_build.SMEM_PER_BLOCK``), and otherwise keeps the diagonals
+and codes in a device scratch buffer of :func:`nw_diag_scratch_bytes` a
+problem and reads the bases through L1.
 
 A problem's diagonals end at ``round_up(qlen + tlen + 1, 4)``; the traceback
 rows past that are zero.  Where ``|qlen - tlen| > r`` the score is INF and
@@ -59,17 +63,45 @@ def nw_diag_smem_bytes(Lq: int, Lt: int, band_radius: int) -> int:
     return 9 * band_slots(band_radius) + Lq + Lt
 
 
-def nw_diag_variant(Lq: int, Lt: int, band_radius: int) -> str:
-    """The kernel variant a (Lq, Lt) batch at radius r runs: ``"shared"``
-    where :func:`nw_diag_smem_bytes` fits a block, else ``"device"``."""
+#: the most slots a lane of the warp plan holds, and the problems a block of
+#: it runs (one a warp)
+WARP_SLOTS = 8
+WARP_PROBLEMS = 4
+
+
+def nw_diag_stage_bytes(Lq: int, Lt: int) -> int:
+    """Shared memory one problem of the warp plan takes for its copy of q
+    and t: each rounded up to 16 bytes, at least 16."""
+    return max(round_up(Lq, 16), 16) + max(round_up(Lt, 16), 16)
+
+
+def nw_diag_plan(Lq: int, Lt: int, band_radius: int) -> tuple:
+    """-> (variant, K, problems) of a (Lq, Lt) batch at radius r.
+
+    Where W = :func:`band_slots` is at most 32 x 8: a warp a problem, K the
+    fewest slots a lane that cover W (``ceil(W / 32)``, 1 to 8),
+    ``problems`` a block;
+    ``"warp-shared"`` with the most problems (4, 2 or 1) whose copies of q
+    and t fit a block, else ``"warp-device"`` (4 a block, q and t read
+    through L1).  Wider bands: a block a problem (K = 0, problems = 1),
+    ``"block-shared"`` where :func:`nw_diag_smem_bytes` fits a block, else
+    ``"block-device"``."""
+    W = band_slots(band_radius)
+    if W <= 32 * WARP_SLOTS:
+        K = -(-W // 32)
+        stage = nw_diag_stage_bytes(Lq, Lt)
+        for n in (WARP_PROBLEMS, 2, 1):
+            if n * stage <= _build.SMEM_PER_BLOCK:
+                return "warp-shared", K, n
+        return "warp-device", K, WARP_PROBLEMS
     fits = nw_diag_smem_bytes(Lq, Lt, band_radius) <= _build.SMEM_PER_BLOCK
-    return "shared" if fits else "device"
+    return ("block-shared" if fits else "block-device"), 0, 1
 
 
 def nw_diag_scratch_bytes(Lq: int, Lt: int, band_radius: int) -> int:
     """Device scratch one problem takes: 9W bytes (two int32 diagonals and a
-    code byte a slot) for the device variant, 0 for the shared one."""
-    if nw_diag_variant(Lq, Lt, band_radius) == "shared":
+    code byte a slot) for the block-device plan, 0 for the others."""
+    if nw_diag_plan(Lq, Lt, band_radius)[0] != "block-device":
         return 0
     return 9 * band_slots(band_radius)
 
@@ -167,6 +199,9 @@ def banded_nw_diag(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
       band_radius: r, the band |i - j| <= r; any value a caller's bucket
         makes.
 
+    The kernel's plan comes from :func:`nw_diag_plan`; none changes a
+    result.
+
     Returns:
       scores: (B,) int32 edit distances, INF where |qlen - tlen| > r.
       tb: (Dpad / 4, B, W) int8 traceback on the inputs' device.
@@ -185,6 +220,7 @@ def banded_nw_diag(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     tb = torch.empty((Dpad // 4, B, W), dtype=torch.int8, device=q.device)
     if B == 0:
         return scores, tb
+    variant, K, problems = nw_diag_plan(Lq, Lt, band_radius)
     per = nw_diag_scratch_bytes(Lq, Lt, band_radius)
     scratch = torch.empty(B * per if per else 0, dtype=torch.uint8,
                           device=q.device)
@@ -195,7 +231,8 @@ def banded_nw_diag(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
             q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(),
             scores.data_ptr(), tb.data_ptr(),
             scratch.data_ptr() if per else None, B, Lq, Lt, band_radius, W,
-            Dpad, torch.cuda.current_stream().cuda_stream)
+            Dpad, K, problems, int(variant.endswith("shared")),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "nw_diag")
     banded_nw_diag.launches += 1
     return scores, tb

@@ -89,44 +89,60 @@ def nwtb_smem_bytes(N: int, P: int, L: int, band_width: int,
     return 4 * (round_up(ints, 2) if word == 8 else ints)
 
 
-def nwtb_plan(W: int, N: int, P: int, L: int, band_width: int,
-              word: int = 4) -> tuple:
-    """-> (variant, threads, ring) of a launch of W windows.
+def group_plan(W: int, RW: int, smem_of, block_windows: int,
+               ring_rows: int) -> tuple | None:
+    """-> (variant, threads, ring) of a launch of W windows whose rows have
+    RW columns, where ``smem_of(ring)`` is one window's shared memory with
+    a ring of that many rows; None where not even a block a window without
+    a ring fits.  Shared by B5 (:func:`nwtb_plan`) and B10
+    (``ops.poa_window.window_plan``), each with its own thresholds.
 
     ``"warp"`` (a warp a window, WARP_WINDOWS windows a block: many windows
     fill the card by themselves) where a row has at most WARP_COLUMNS
-    columns, the launch has more than BLOCK_WINDOWS windows and
-    WARP_WINDOWS windows' facts and sequences fit a block; else ``"block"``
-    (a block a window: BLOCK_THREADS threads, a row's columns spread over
-    four warps, which a window's chain of rows needs when few windows share
-    the card, or about four columns a thread, up to 1,024 threads, for
-    wider rows).  The ring is the deepest power of two up to RING_ROWS
-    whose rings fit a block, 0 when not even two rows do.  Raises
-    ValueError where not even a block a window without a ring fits (two
-    rows of pred facts and the sequence past 227 KB: P past about 9,600
-    or L past about 232,000)."""
-    RW = ring_width(L, band_width)
+    columns, the launch has more than ``block_windows`` windows and
+    WARP_WINDOWS windows fit a block; else ``"block"`` (a block a window:
+    BLOCK_THREADS threads, a row's columns spread over four warps, which a
+    window's chain of rows needs when few windows share the card, or about
+    four columns a thread, up to 1,024 threads, for wider rows).  The ring
+    is the deepest power of two up to ``ring_rows`` whose rings fit a
+    block, 0 when not even two rows do."""
     limit = _build.SMEM_PER_BLOCK - 128      # the warp totals are static
 
     def fits(windows, ring):
-        return windows * nwtb_smem_bytes(N, P, L, band_width, ring,
-                                         word) <= limit
+        return windows * smem_of(ring) <= limit
 
-    if RW <= WARP_COLUMNS and W > BLOCK_WINDOWS and fits(WARP_WINDOWS, 0):
+    if RW <= WARP_COLUMNS and W > block_windows and fits(WARP_WINDOWS, 0):
         variant, threads, windows = "warp", 32 * WARP_WINDOWS, WARP_WINDOWS
     else:
         variant, windows = "block", 1
         threads = BLOCK_THREADS if RW <= WARP_COLUMNS else \
             min(1024, round_up(-(-RW // 4), 32))
         if not fits(1, 0):
-            raise ValueError(
-                f"graph NW: a window's pred facts and sequence take "
-                f"{nwtb_smem_bytes(N, P, L, band_width, 0, word)} B of "
-                f"shared memory, past a block's {limit} (P={P}, L={L})")
-    ring = RING_ROWS
+            return None
+    ring = ring_rows
     while ring >= 2 and not fits(windows, ring):
         ring //= 2
     return variant, threads, (ring if ring >= 2 else 0)
+
+
+def nwtb_plan(W: int, N: int, P: int, L: int, band_width: int,
+              word: int = 4) -> tuple:
+    """-> (variant, threads, ring) of a launch of W windows (:func:`group_plan`
+    with BLOCK_WINDOWS and RING_ROWS, one window's shared memory
+    :func:`nwtb_smem_bytes`).  Raises ValueError where not even a block a
+    window without a ring fits (two rows of pred facts and the sequence
+    past 227 KB: P past about 9,600 or L past about 232,000)."""
+    plan = group_plan(W, ring_width(L, band_width),
+                      lambda ring: nwtb_smem_bytes(N, P, L, band_width, ring,
+                                                   word),
+                      BLOCK_WINDOWS, RING_ROWS)
+    if plan is None:
+        raise ValueError(
+            f"graph NW: a window's pred facts and sequence take "
+            f"{nwtb_smem_bytes(N, P, L, band_width, 0, word)} B of "
+            f"shared memory, past a block's {_build.SMEM_PER_BLOCK - 128} "
+            f"(P={P}, L={L})")
+    return plan
 
 
 def _check(seq, order, rank, npred, base, nsucc, pred, slen, node_count,

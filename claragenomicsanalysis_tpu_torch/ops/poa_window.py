@@ -12,11 +12,14 @@ in ``claragenomicsanalysis_tpu/ops/poa_pallas.py``; spec
   (``ops/poa_{topsort,nwtb,add,consensus,msa}.py``), and the graphs live in
   device memory between them.
 - :func:`poa_window` is the one-kernel-per-window route: kernel
-  ``csrc/poa_window.cu`` runs every phase of a window in one block, the graph
-  in shared memory for the life of the window (counted in
-  ``poa_window.launches``).  A plan whose shared memory passes what a block
-  can have (``SMEM_LIMIT``) raises ``ValueError`` with the sizes; it never
-  switches route by itself.  For CPU tensors it runs its plain version.
+  ``csrc/poa_window.cu`` runs every phase of a window in one warp (a launch
+  of many windows) or one block (:func:`window_plan`), the graph in the
+  window's slice of a device scratch buffer (:func:`window_scratch_bytes`)
+  and only the graph NW's ring, row facts and sequence in shared memory
+  (:func:`window_smem_bytes`); counted in ``poa_window.launches``.  A window
+  whose shared memory passes what a block can have raises ``ValueError``
+  with the sizes; it never switches route by itself.  For CPU tensors it
+  runs its plain version.
 - :func:`poa_window_torch`, the plain version of that kernel, is the
   lockstep loop over the plain PyTorch versions of the five steps
   (``run_windows(..., plain=True)``).
@@ -32,22 +35,22 @@ import torch
 
 from ..core.config import BatchSize, PoaScores
 from ..core.status import StatusType
+from ..utils.mathutils import round_up
 from ..utils.profiling import kernel_span, trace_range
 from . import _build
 from .poa_add import MAX_ALIGNED, add_alignment, add_alignment_torch
 from .poa_consensus import consensus, consensus_torch
 from .poa_msa import msa as msa_rows
 from .poa_msa import msa_torch
-from .poa_nwtb import graph_nw_traceback, graph_nw_traceback_torch
+from .poa_nwtb import (BLOCK_WINDOWS, RING_ROWS, graph_nw_traceback,
+                       graph_nw_traceback_torch, group_plan, nwtb_smem_bytes,
+                       nwtb_word_bytes, ring_width)
 from .poa_state import init_level, init_state
 from .poa_topsort import topsort, topsort_torch
 
 _LOOP = int(StatusType.LOOP_COUNT_EXCEEDED_UPPER_BOUND)
 _BAND = int(StatusType.EXCEEDED_BAND_WIDTH)
 _OK = int(StatusType.SUCCESS)
-#: shared memory a block can have on Hopper (227 KB), less 1 KB for the
-#: kernels' few static words
-SMEM_LIMIT = 232_448 - 1024
 
 
 def run_windows(bs: BatchSize, sc: PoaScores, banded: bool, seqs, weights,
@@ -104,16 +107,54 @@ def run_windows(bs: BatchSize, sc: PoaScores, banded: bool, seqs, weights,
     return codes, covs, length, rows, n_cols, state.status, state
 
 
-def window_smem_bytes(bs: BatchSize) -> int:
-    """Shared memory one window's block takes in ``csrc/poa_window.cu``: the
-    graph (5 node fields, pred and predw, alig), level, order and rank, then
-    one scratch region sized for the largest phase (topsort's two level
-    buffers, the graph NW's staging ``L + 3N + NP``, the consensus's tables
-    ``6N + NP + MC``)."""
+def window_smem_bytes(bs: BatchSize, band_width: int = 0,
+                      ring_rows: int = RING_ROWS, word: int = 4) -> int:
+    """Shared memory one window takes in ``csrc/poa_window.cu``: the graph
+    NW's (:func:`..poa_nwtb.nwtb_smem_bytes`: a ring of ``ring_rows`` rows,
+    two rows' facts, the sequence as bytes) and four int32 of state (an
+    even count of int32 in all for 8-byte words)."""
+    ints = nwtb_smem_bytes(bs.padded_nodes, bs.max_pred_per_node,
+                           bs.padded_seq, band_width, ring_rows, word) // 4
+    ints += 4
+    return 4 * (round_up(ints, 2) if word == 8 else ints)
+
+
+def window_scratch_bytes(bs: BatchSize) -> int:
+    """Device scratch one window takes in ``csrc/poa_window.cu``: the graph
+    (5 node fields, level, order, rank, pred and predw, alig), the path
+    (``pn``, ``pp``: N + L each) and the phases' tables, sized for the
+    largest (the consensus's ``6N + NP + MC``), all int32.  The score plane
+    comes on top (:func:`..poa_nwtb.plane_bytes`)."""
     N, L, MC = bs.padded_nodes, bs.padded_seq, bs.max_consensus_size
     P, A = bs.max_pred_per_node, bs.max_aligned_per_node
-    scratch = max(2 * N, L + 3 * N + N * P, 6 * N + N * P + MC)
-    return 4 * (N * (8 + 2 * P + A) + scratch)
+    return 4 * (N * (8 + 2 * P + A) + 2 * (N + L) + 6 * N + N * P + MC)
+
+
+def window_plan(W: int, bs: BatchSize, band_width: int = 0,
+                word: int = 4) -> tuple:
+    """-> (variant, threads, ring) of a launch of W windows of ``bs``:
+    :func:`..poa_nwtb.group_plan` with this module's BLOCK_WINDOWS and
+    RING_ROWS (the graph NW's own, unless a caller sets them here) and one
+    window's shared memory :func:`window_smem_bytes`.  So a warp a window
+    where a graph-NW row has at most WARP_COLUMNS columns and the launch
+    has more than BLOCK_WINDOWS windows, else a block a window.  Raises
+    ValueError where not even a block a window without a ring fits (two
+    rows of pred facts and the sequence past 227 KB: P past about 9,600 or
+    L past about 232,000)."""
+    plan = group_plan(W, ring_width(bs.padded_seq, band_width),
+                      lambda ring: window_smem_bytes(bs, band_width, ring,
+                                                     word),
+                      BLOCK_WINDOWS, RING_ROWS)
+    if plan is None:
+        raise ValueError(
+            f"the one-kernel-per-window POA keeps a window's graph-NW ring, "
+            f"row facts and sequence in shared memory and needs "
+            f"{window_smem_bytes(bs, band_width, 0, word)} B a block "
+            f"without a ring for N={bs.padded_nodes}, "
+            f"P={bs.max_pred_per_node}, L={bs.padded_seq}, more than the "
+            f"{_build.SMEM_PER_BLOCK - 128} B a block can have; use "
+            f"kernel=\"lockstep\" or a smaller BatchSize")
+    return plan
 
 
 def _check(seqs, weights, lens, n_seqs, bs: BatchSize):
@@ -143,7 +184,8 @@ def poa_window_torch(seqs, weights, lens, n_seqs, bs: BatchSize,
 def poa_window(seqs, weights, lens, n_seqs, bs: BatchSize, sc: PoaScores,
                banded: bool = False, msa: bool = False):
     """Consensus (and MSA) of one launch of windows, each window's whole POA
-    in one block.
+    in one warp or one block (:func:`window_plan`; no plan changes a
+    result).
 
     Args:
       seqs, weights: (W, S, L) int32 codes (-1 pad) and weights.
@@ -161,15 +203,6 @@ def poa_window(seqs, weights, lens, n_seqs, bs: BatchSize, sc: PoaScores,
     _check(seqs, weights, lens, n_seqs, bs)
     if seqs.device.type != "cuda":
         raise ValueError(f"no kernel for device {seqs.device}")
-    smem = window_smem_bytes(bs)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"the one-kernel-per-window POA keeps a window's graph in shared "
-            f"memory and needs {smem} B a block for N={bs.padded_nodes}, "
-            f"P={bs.max_pred_per_node}, A={bs.max_aligned_per_node}, "
-            f"L={bs.padded_seq}, MC={bs.max_consensus_size}, more than the "
-            f"{SMEM_LIMIT} B a block can have; use kernel=\"lockstep\" or a "
-            f"smaller BatchSize")
     seqs, weights, lens, n_seqs = (t.contiguous()
                                    for t in (seqs, weights, lens, n_seqs))
     W, S, L = seqs.shape
@@ -188,9 +221,13 @@ def poa_window(seqs, weights, lens, n_seqs, bs: BatchSize, sc: PoaScores,
         n_cols = torch.zeros(W, dtype=i32, device=dev)
     if W == 0:
         return codes, covs, length, rows, n_cols, status
-    plane = torch.empty((W, N + 1, L + 1), dtype=i32, device=dev)
-    pn = torch.empty((W, N + L), dtype=i32, device=dev)
-    pp = torch.empty_like(pn)
+    bw = bs.band_width if banded else 0
+    word = nwtb_word_bytes(N, L, sc)
+    variant, threads, ring = window_plan(W, bs, bw, word)
+    graphs = torch.empty(W * window_scratch_bytes(bs) // 4, dtype=i32,
+                         device=dev)
+    plane = torch.empty((W, N + 1, L + 1), device=dev,
+                        dtype=torch.int64 if word == 8 else i32)
     paths = torch.empty((W, S, L), dtype=i32, device=dev) if msa else None
     lib = _build.load()
     with torch.cuda.device(dev), kernel_span(
@@ -198,13 +235,14 @@ def poa_window(seqs, weights, lens, n_seqs, bs: BatchSize, sc: PoaScores,
             W * (S - 1) * N * (L + 1)):
         err = lib.cga_poa_window(
             seqs.data_ptr(), weights.data_ptr(), lens.data_ptr(),
-            n_seqs.data_ptr(), plane.data_ptr(), pn.data_ptr(),
-            pp.data_ptr(), paths.data_ptr() if msa else None,
+            n_seqs.data_ptr(), graphs.data_ptr(), plane.data_ptr(),
+            paths.data_ptr() if msa else None,
             codes.data_ptr(), covs.data_ptr(), length.data_ptr(),
             status.data_ptr(), rows.data_ptr() if msa else None,
             n_cols.data_ptr() if msa else None, W, N, P, A, S, L, MC,
             bs.max_nodes_per_window, sc.match_score, sc.mismatch_score,
-            sc.gap_score, bs.band_width if banded else 0, smem,
+            sc.gap_score, bw, int(variant == "block"), threads, ring,
+            ring_width(L, bw), word, window_smem_bytes(bs, bw, ring, word),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_window")
     poa_window.launches += 1

@@ -21,7 +21,7 @@ from claragenomicsanalysis_tpu.utils.genomeutils import encode
 from claragenomicsanalysis_tpu_torch.core.config import BatchSize, PoaScores
 from claragenomicsanalysis_tpu_torch.core.status import StatusType
 from claragenomicsanalysis_tpu_torch.models import poa
-from claragenomicsanalysis_tpu_torch.ops import poa_window
+from claragenomicsanalysis_tpu_torch.ops import _build, poa_window
 from test_torch_poa import (MSA, SHAPES, jax_ref_batch, port_batch,
                             windows_for)
 
@@ -192,18 +192,27 @@ def test_window_route_matches_the_pallas_kernel_interpreted():
 
 
 def test_window_route_refuses_a_plan_over_shared_memory():
-    """The shared memory of one window's block, counted as the kernel lays
-    it out; the deep-pileup shape passes what a block can have."""
+    """The shared memory of one window, counted as the kernel lays it out:
+    the graph NW's ring, two rows' facts, the sequence and four words of
+    state (the graph lives in device memory).  The correction and the deep
+    shapes fit; a window whose pred facts alone pass what a block can have
+    is refused with the sizes."""
     corr = BatchSize(max_sequence_size=256, max_nodes_per_window=384,
                      max_sequences_per_poa=8, max_pred_per_node=8,
                      max_aligned_per_node=4)
     deep = BatchSize(max_sequence_size=512, max_sequences_per_poa=16,
                      max_pred_per_node=16, max_aligned_per_node=8,
                      max_nodes_per_window=1024)
-    assert poa_window.window_smem_bytes(corr) == 4 * (384 * 28 + 5888) \
-        < poa_window.SMEM_LIMIT
-    assert poa_window.window_smem_bytes(deep) == 4 * (1024 * 48 + 23552) \
-        > poa_window.SMEM_LIMIT
+    limit = _build.SMEM_PER_BLOCK - 128
+    assert poa_window.window_smem_bytes(corr) == 4 * 2180 < limit
+    assert poa_window.window_smem_bytes(deep, 256) == 4 * 2292 < limit
+    assert poa_window.window_plan(2_219, corr)[0] == "warp"
+    assert poa_window.window_plan(434, deep, 256)[0] == "block"
+    wide = BatchSize(max_sequence_size=256, max_nodes_per_window=384,
+                     max_pred_per_node=9_700)
+    assert poa_window.window_smem_bytes(wide, ring_rows=0) > limit
+    with pytest.raises(ValueError, match="kernel=\"lockstep\""):
+        poa_window.window_plan(8, wide)
 
 
 def test_poa_window_checks_its_arguments():
@@ -240,4 +249,45 @@ def test_batch_msa_on_card_equals_cpu(name, kernel):
         args = (*arrays, BatchSize(**kw), PoaScores(), banded, msa)
         for a, b in zip(poa_window.poa_window(*args),
                         poa_window.poa_window_torch(*args)):
+            assert torch.equal(a, b)
+
+
+#: scores whose cells pass the 24 bits of a 4-byte plane word at these
+#: shapes: the graph NW runs on 8-byte words
+WIDE = PoaScores(match_score=20_000, mismatch_score=-15_000,
+                 gap_score=-20_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant, ring, scores", [
+    ("warp", 8, PoaScores()), ("block", 8, PoaScores()),
+    ("warp", 2, PoaScores()), ("block", 0, PoaScores()),
+    ("warp", 8, WIDE), ("block", 8, WIDE),
+])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_window_plans_on_card_equal_plain_version(name, variant, ring,
+                                                  scores, monkeypatch):
+    """B10 as a warp and as a block a window (BLOCK_WINDOWS set so that
+    the launch takes the one asked for), with an 8- and a 2-row ring or
+    none, on 4- and 8-byte plane words, with and without the MSA, against
+    its plain version: windows that stop at different sequences, overflow
+    (the overflow shape) and leave the band (the banded one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    monkeypatch.setattr(poa_window, "BLOCK_WINDOWS",
+                        0 if variant == "warp" else 1 << 20)
+    monkeypatch.setattr(poa_window, "RING_ROWS", ring)
+    kw, banded, _ = SHAPES[name]
+    bs = BatchSize(**kw)
+    arrays = [a.cuda() for a in pack_windows(name, windows_for(name))]
+    W = arrays[0].shape[0]
+    word = 8 if scores is WIDE else 4
+    assert poa_window.window_plan(W, bs, bs.band_width if banded else 0,
+                                  word)[::2] == (variant, ring)
+    for msa in (False, True):
+        args = (*arrays, bs, scores, banded, msa)
+        got = poa_window.poa_window(*args)
+        torch.cuda.synchronize()
+        want = poa_window.poa_window_torch(*args)
+        for a, b in zip(got, want):
             assert torch.equal(a, b)

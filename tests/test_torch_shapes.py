@@ -58,7 +58,8 @@ def test_nw_diag_switches_at_r_16448(lq_lt, variant):
     assert bucket_radius(64, 8_193) == bucket_radius(64, 16_384) == 16_448
     assert nw_diag.nw_diag_smem_bytes(40_000, lq_lt - 40_000, 16_448) == \
         148_104 + lq_lt
-    assert nw_diag.nw_diag_variant(40_000, lq_lt - 40_000, 16_448) == variant
+    assert nw_diag.nw_diag_plan(40_000, lq_lt - 40_000, 16_448) == \
+        ("block-" + variant, 0, 1)
     want = 0 if variant == "shared" else 9 * 16_456
     assert nw_diag.nw_diag_scratch_bytes(40_000, lq_lt - 40_000,
                                          16_448) == want
@@ -71,11 +72,52 @@ def test_lengths_16385_apart_need_device_memory_in_both_kernels():
     64 lanes and 1,024 threads could hold."""
     r = bucket_radius(64, 16_385)
     assert r == 32_832
-    assert nw_diag.nw_diag_variant(1_000, 17_392, r) == "device"
+    assert nw_diag.nw_diag_plan(1_000, 17_392, r) == ("block-device", 0, 1)
     assert nw_diag.nw_diag_scratch_bytes(1_000, 17_392, r) == 9 * 32_840
     assert nw_row.band_width_row(r) == 65_672
     assert nw_row.nw_row_plan(8, 8, r) == ("device", 8, 9, 928)
     assert nw_row.nw_row_scratch_bytes(8, 8, r) == 4 * 65_673
+
+
+@pytest.mark.parametrize("r, plan", [
+    (7, ("warp-shared", 1, 4)),           # W = 8
+    (31, ("warp-shared", 1, 4)),          # W = 32: one slot a lane
+    (32, ("warp-shared", 2, 4)),          # W = 40: Hirschberg's base case
+    (63, ("warp-shared", 2, 4)),          # W = 64
+    (72, ("warp-shared", 3, 4)),          # W = 80: the main path's bucket
+    (127, ("warp-shared", 4, 4)),         # W = 128
+    (200, ("warp-shared", 7, 4)),         # W = 208
+    (255, ("warp-shared", 8, 4)),         # W = 256: the widest a warp takes
+    (256, ("block-shared", 0, 1)),        # W = 264: a block a problem
+])
+def test_nw_diag_plan_by_band(r, plan):
+    """A warp a problem up to W = 256 slots, K the fewest slots a lane
+    with 32 K >= W; wider bands a block a problem."""
+    assert nw_diag.nw_diag_plan(10_000, 10_008, r) == plan
+    W = nw_diag.band_slots(r)
+    variant, K, _ = plan
+    if variant.startswith("warp"):
+        assert 32 * K >= W > 32 * (K - 1)
+    assert nw_diag.nw_diag_scratch_bytes(10_000, 10_008, r) == 0
+
+
+@pytest.mark.parametrize("lq_lt, plan", [
+    (58_112, ("warp-shared", 8, 4)),      # 4 x 58,112 = 232,448 B
+    (58_128, ("warp-shared", 8, 2)),
+    (116_224, ("warp-shared", 8, 2)),
+    (116_240, ("warp-shared", 8, 1)),
+    (232_448, ("warp-shared", 8, 1)),
+    (232_464, ("warp-device", 8, 4)),     # q and t read through L1
+])
+def test_nw_diag_warp_plan_stages_while_q_and_t_fit(lq_lt, plan):
+    """A warp's copy of q and t (each rounded up to 16 bytes) sets the
+    problems a block: 4, 2 or 1 whose copies fit 227 KB, else 4 a block
+    reading q and t through L1.  No warp plan takes device scratch."""
+    Lq = lq_lt // 32 * 16
+    assert nw_diag.nw_diag_stage_bytes(Lq, lq_lt - Lq) == lq_lt
+    assert nw_diag.nw_diag_plan(Lq, lq_lt - Lq, 255) == plan
+    assert nw_diag.nw_diag_scratch_bytes(Lq, lq_lt - Lq, 255) == 0
+    assert nw_diag.nw_diag_stage_bytes(0, 3) == 32
 
 
 @pytest.mark.parametrize("r, plan", [
@@ -219,6 +261,74 @@ def test_nwtb_plan_refuses_only_past_a_block():
     assert poa_nwtb.nwtb_plan(2159, 384, 9_600, 256, 0) == ("block", 128, 0)
     with pytest.raises(ValueError, match="past a block"):
         poa_nwtb.nwtb_plan(2159, 384, 9_700, 256, 0)
+
+
+#: the smoke's three POA shapes: correction, deep (banded), MSA
+CORR = BatchSize(max_sequence_size=256, max_nodes_per_window=384,
+                 max_sequences_per_poa=8, max_pred_per_node=8,
+                 max_aligned_per_node=4)
+DEEP = BatchSize(max_sequence_size=512, max_sequences_per_poa=16,
+                 max_pred_per_node=16, max_aligned_per_node=8,
+                 max_nodes_per_window=1024)
+MSA_BS = BatchSize(max_sequence_size=128, max_sequences_per_poa=8,
+                   max_pred_per_node=4, max_aligned_per_node=4,
+                   max_nodes_per_window=256)
+
+
+@pytest.mark.parametrize("W, bs, band, plan", [
+    (2_219, CORR, 0, ("warp", 128, 8)),   # the correction shape's launch
+    (4_096, MSA_BS, 0, ("warp", 128, 8)),  # the MSA shape's
+    (434, DEEP, 256, ("block", 128, 8)),  # the deep shape's, banded
+    (1_056, CORR, 0, ("block", 128, 8)),  # 8 windows an SM: a block each
+    (1_057, CORR, 0, ("warp", 128, 8)),
+    (4_096, BatchSize(max_sequence_size=1_024, max_sequences_per_poa=4),
+     0, ("block", 288, 8)),               # rows of 1,025 columns
+])
+def test_window_plan_by_window_count_and_shape(W, bs, band, plan):
+    """B10 takes a warp a window where the launch has more windows than 8
+    an SM and a row fits a warp, else a block a window, as B5 does."""
+    assert poa_window.window_plan(W, bs, band) == plan
+
+
+@pytest.mark.parametrize("bs, band, smem, scratch", [
+    # ring 8 x 257 words, facts 2 x (4 + 3 x 8), sequence 64, state 4 ints
+    (CORR, 0, 4 * (8 * 257 + 56 + 64 + 4),
+     4 * (384 * 28 + 2 * 640 + 6 * 384 + 384 * 8 + 512)),
+    (DEEP, 256, 4 * (8 * 257 + 104 + 128 + 4),
+     4 * (1024 * 48 + 2 * 1536 + 6 * 1024 + 1024 * 16 + 1024)),
+    (MSA_BS, 0, 4 * (8 * 129 + 32 + 32 + 4),
+     4 * (256 * 20 + 2 * 384 + 6 * 256 + 256 * 4 + 256)),
+])
+def test_window_counts_at_the_smoke_shapes(bs, band, smem, scratch):
+    """A window's shared memory (the graph NW's ring, two rows' facts, the
+    sequence, four words of state) and its slice of the device scratch
+    (the graph, the path, the largest phase's tables), as the kernel lays
+    them out; a few KB of shared memory, so 16-32 windows an SM fit."""
+    assert poa_window.window_smem_bytes(bs, band) == smem
+    assert poa_window.window_scratch_bytes(bs) == scratch
+    assert poa_window.window_smem_bytes(bs, band, word=8) > smem
+    assert 4 * smem < 48 * 1024
+
+
+@pytest.mark.parametrize("bs, msa, n, sizes", [
+    (CORR, False, 4_096, [2_219, 1_877]),
+    (MSA_BS, True, 4_096, [4_096]),
+    (DEEP, False, 512, [434, 78]),
+])
+def test_launch_chunks_follow_the_window_route(bs, msa, n, sizes):
+    """The window route's launches are cut by its own bytes a window: the
+    plane, the scratch slice, the sequences and weights (with the MSA its
+    paths and rows); the lockstep route's stay as they were."""
+    got = poa.launch_chunks(n, bs, msa, kernel="window")
+    assert [len(c) for c in got] == sizes
+    assert poa.window_bytes(bs, msa, kernel="window") == (
+        poa_nwtb.plane_bytes(bs.padded_nodes, bs.padded_seq)
+        + poa_window.window_scratch_bytes(bs)
+        + 8 * bs.max_sequences_per_poa * bs.padded_seq
+        + (4 * bs.max_sequences_per_poa
+           * (bs.padded_seq + bs.padded_nodes) if msa else 0))
+    assert poa.launch_chunks(n, bs, msa) == poa.launch_chunks(
+        n, bs, msa, kernel="lockstep")
 
 
 def fan_in(P: int, W: int, seed: int):
@@ -367,13 +477,57 @@ def test_banded_device_variants_match_plain_versions(r, cuda_device):
     of 8 lanes), scores and the whole traceback."""
     q, qlen, t, tlen = pair_batch(wide_pairs(r, 160, 400), 160, 400,
                                   cuda_device)
-    assert nw_diag.nw_diag_variant(160, 400, r) == "device"
+    assert nw_diag.nw_diag_plan(160, 400, r)[0] == "block-device"
     for nw, plain in ((nw_diag.banded_nw_diag, nw_diag.banded_nw_diag_torch),
                       (nw_row.banded_nw_row, nw_row.banded_nw_row_torch)):
         got = nw(q, qlen, t, tlen, r)
         torch.cuda.synchronize()
         want = plain(q, qlen, t, tlen, r)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def near_pairs(seed: int, n: int, lq: int, lt: int, r: int):
+    """n pairs of at most lq and lt bases whose lengths differ by at most
+    r, each a mutated copy of the other, and two that leave the band."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(n):
+        a = generate_random_genome(int(rng.integers(1, lq + 1)), rng)
+        b = mutate_sequence(a, max(1, len(a) // 20), rng)[:lt]
+        pairs.append((a, b))
+    a = generate_random_genome(lq, rng)
+    return pairs + [(a, a[:max(0, lq - r - 1)]), ("", a[:min(lt, r)]),
+                    (a[:30] + "NN", a[:30] + "NN")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r, smem, plan", [
+    (7, None, ("warp-shared", 1, 4)),
+    (40, None, ("warp-shared", 2, 4)),
+    (72, None, ("warp-shared", 3, 4)),
+    (100, None, ("warp-shared", 4, 4)),
+    (150, None, ("warp-shared", 5, 4)),
+    (200, None, ("warp-shared", 7, 4)),
+    (255, None, ("warp-shared", 8, 4)),
+    (100, 500, ("warp-device", 4, 4)),
+    (300, None, ("block-shared", 0, 1)),
+    (300, 500, ("block-device", 0, 1)),
+])
+def test_nw_diag_plans_match_plain_version(r, smem, plan, cuda_device,
+                                           monkeypatch):
+    """B1 in each plan (a warp a problem with K = 1 to 8 slots a lane, q
+    and t staged or read through L1; a block a problem, shared or
+    device), scores and the whole traceback, against its plain version;
+    SMEM_PER_BLOCK lowered to reach the device plans at small shapes."""
+    if smem:
+        monkeypatch.setattr(_build, "SMEM_PER_BLOCK", smem)
+    assert nw_diag.nw_diag_plan(400, 420, r) == plan
+    q, qlen, t, tlen = pair_batch(near_pairs(r, 37, 400, 420, r), 400, 420,
+                                  cuda_device)
+    got = nw_diag.banded_nw_diag(q, qlen, t, tlen, r)
+    torch.cuda.synchronize()
+    want = nw_diag.banded_nw_diag_torch(q, qlen, t, tlen, r)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
