@@ -16,7 +16,10 @@ Phases, one line or more each:
      block's 1,024 threads), each row result also against B1's scores and
      paths;
   3. the traceback-decode kernels (B2, both layouts) against their plain
-     versions on the same tb;
+     versions on the same tb, and at their plan's row threshold (60 and 64
+     packed rows); every B2 launch this script replays (phases 2, 3, 5, 7,
+     16 and 17) also runs in the plan its shape does not take (a warp a
+     problem staging its rows in shared memory, or a thread a problem);
   4. the port's ``align`` CLI on the bundled data against the golden file,
      through ``create_aligner(..., kernel="diag")`` and ``kernel="row"``;
   5. the ``ukkonen`` main path, ``create_aligner(..., device="cuda")`` then
@@ -51,7 +54,9 @@ Phases, one line or more each:
      one-kernel-per-window POA (B10) on the same windows against the
      lockstep loop over the plain versions, with and without the MSA, in
      each of its plans (a warp or a block a window, rings of 8, 2 and 0
-     rows) and on 8-byte plane words;
+     rows) and on 8-byte plane words; then B6's edges (clique capacities
+     A = 1, 31, 32 and 63 filled, the edge and node overflows), every
+     lockstep launch against the plain versions;
  10b. B5's variants (a warp or a block a window, with the ring, a 2-row
      ring and none; 72 pred slots; 8-byte plane words) against its plain
      version at every lockstep launch;
@@ -97,23 +102,23 @@ Phases, one line or more each:
      window) and of 9,000-base sequences (B7 and B8 on device memory, B5
      past L = 8,191), each kernel at its largest launch against its plain
      version with times and bounds.
-Then a line per redesigned kernel (B1, B4, B5, B10) with its time at each
-main path's largest launch beside the first design's as PERF.md records it
-(FIRST_DESIGN_MS, not measured by this run) and its bound, and a line per
-variant of phases 2, 6, 15, 17 and 18.  Then one JSON line describing every
-kernel: under ``paths``, for each main path (``ukkonen``, ``myers``,
-``poa``, ``poa_deep``, ``poa_msa``, ``poa_window``, ``poa_window_msa``,
-``poa_window_deep``, ``ukkonen_row``), its launches in that
-run (counts zeroed just before it, read just after) and the kernel's time,
-plain time and bound (the least time the card could take for the same work)
-at that path's largest launch, and the kernel's device time in that run
-(``run_ms``); under ``variants`` the figures of phases 2, 6, 15, 17 and 18
-(every
-number in the line measured by this run, but the bounds, which it
-computes); at the top level the sum of the launches, the largest difference from the plain
-version seen anywhere, and the times of the path where the kernel spent the
-most device time.  Last ``{"ok": true, "device":
-{...}}``.  Any failed check raises,
+Then a line per redesigned kernel (B1, B2, B4, B5, B6, B10) with its time
+at each main path's largest launch beside the first design's as PERF.md
+records it (FIRST_DESIGN_MS, not measured by this run) and its bound, and a
+line per variant of phases 2, 3, 6, 15, 17 and 18.  Then one JSON line
+describing every kernel: under ``paths``, for each main path (``ukkonen``,
+``myers``, ``poa``, ``poa_deep``, ``poa_msa``, ``poa_window``,
+``poa_window_msa``, ``poa_window_deep``, ``ukkonen_row``), its launches in
+that run (counts zeroed just before it, read just after), the kernel's
+device time in that run (``run_ms``) and, at that path's largest launch,
+the plan it took and the kernel's time, plain time and bound (the least
+time the card could take for the same work); under ``variants`` the
+figures of phases 2, 3, 6, 15, 17 and 18 and of the B2 launches replayed in
+the other plan (every number in the line measured by this run, but the
+bounds, which it computes); at the top level the sum of the launches, the
+largest difference from the plain version seen anywhere, and the times of
+the path where the kernel spent the most device time.  Last ``{"ok": true,
+"device": {...}}``.  Any failed check raises,
 so the script exits non-zero and prints no result; so does a machine with no
 CUDA device.  The comparisons are exact: the DP is integer work.  The script
 reaches only the port (``claragenomicsanalysis_tpu_torch``); its data is
@@ -154,7 +159,11 @@ FIRST_DESIGN_MS = {("poa_nwtb", "poa"): 1.368, ("poa_nwtb", "poa_deep"): 2.042,
                    ("myers", "myers"): 9.327,
                    ("nw_diag", "ukkonen"): 4.816, ("nw_diag", "myers"): 1.864,
                    ("poa_window", "poa_window_msa"): 18.430,
-                   ("poa_window", "poa_window"): 20.779}
+                   ("poa_window", "poa_window"): 20.779,
+                   ("tb_decode", "ukkonen"): 5.133, ("tb_decode", "myers"): 0.121,
+                   ("tb_decode_row", "ukkonen_row"): 4.760,
+                   ("poa_add", "poa"): 0.404, ("poa_add", "poa_deep"): 0.623,
+                   ("poa_add", "poa_msa"): 0.310}
 FIRST_MYERS_MS = {"score pass": 7.023, "Hirschberg level 0": 9.327}
 
 
@@ -382,6 +391,33 @@ def smem_forced(limit):
         _build.SMEM_PER_BLOCK = saved
 
 
+@contextlib.contextmanager
+def decode_forced(variant: str | None):
+    """Inside the block ops.tb_decode.tb_decode_plan gives every shape the
+    ``variant`` asked for: "thread" (STAGE_MIN_ROWS past any problem) or
+    "staged" (no row or width threshold, a ring of up to a block's shared
+    memory, so that even a one-row chunk of the widest band fits); None
+    leaves it."""
+    from claragenomicsanalysis_tpu_torch.ops import _build, tb_decode
+    names = ("STAGE_MIN_ROWS", "STAGE_MAX_WIDTH", "RING_BYTES")
+    saved = [getattr(tb_decode, k) for k in names]
+    if variant == "thread":
+        tb_decode.STAGE_MIN_ROWS = 1 << 30
+    elif variant == "staged":
+        tb_decode.STAGE_MIN_ROWS, tb_decode.STAGE_MAX_WIDTH = 0, 1 << 30
+        tb_decode.RING_BYTES = _build.SMEM_PER_BLOCK
+    try:
+        yield
+    finally:
+        for k, v in zip(names, saved):
+            setattr(tb_decode, k, v)
+
+
+#: B2 launches replayed in the plan their shape does not take (time_banded,
+#: phase 3's thresholds): kernel name -> variant figures
+FORCED_PLANS = {"tb_decode": [], "tb_decode_row": []}
+
+
 def phase_kernels(rng, sm_mhz: float):
     """Phases 2 and 3: each kernel against its plain version on the card,
     B1 in each of its plans (NW_DIAG_PLANS: a warp a problem at K = 1, 2, 3,
@@ -432,6 +468,36 @@ def phase_kernels(rng, sm_mhz: float):
     errs |= phase_row_kernels(pairs, (1, 3, 8, 31, 64))
     wide = phase_row_kernels(wide_band_pairs(rng, 64), (600, 2100))
     return errs | {k: max(v, errs[k]) for k, v in wide.items()}, plans
+
+
+def phase_decode_thresholds(rng, sm_mhz: float) -> dict:
+    """Phase 3 at B2's row threshold (ops.tb_decode.STAGE_MIN_ROWS = 64
+    packed rows; a traceback's rows are a multiple of four, so 60 is the
+    largest shape below it), in both layouts: 64 pairs with two INF-score
+    rows, decoded in their plan and in the other one forced, each equal to
+    the plain version (time_banded).  -> the largest differences."""
+    from claragenomicsanalysis_tpu_torch.ops import tb_decode
+    from claragenomicsanalysis_tpu_torch.ops.convert import from_reference
+    errs = {}
+    for kernel, lengths in (("diag", (119, 120)), ("row", (240, 256))):
+        for L in lengths:
+            pairs = []
+            for _ in range(62):
+                a = rng.integers(0, 4, L)
+                pairs.append((to_str(a), to_str(mutate(a, 4, rng))[:L]))
+            a = to_str(rng.integers(0, 4, L))
+            pairs += [(a, a[:5]), (a[:3], a)]       # INF at r = 16
+            q, qlen, t, tlen = from_reference(*pack(pairs, L, L),
+                                              device="cuda")[:4]
+            per = time_banded(q, qlen, t, tlen, 16, sm_mhz,
+                              f"phase 3 {kernel} threshold (L={L})", kernel)
+            name = "tb_decode" if kernel == "diag" else "tb_decode_row"
+            want = "staged" if L in (120, 256) else "thread"
+            check(per[name]["plan"].startswith(want),
+                  f"phase 3: {name} at L={L} took {per[name]['plan']}, not "
+                  f"{want} (STAGE_MIN_ROWS={tb_decode.STAGE_MIN_ROWS})")
+            errs[name] = max(errs.get(name, 0), per[name]["err"])
+    return errs
 
 
 def phase_row_kernels(pairs, radii) -> dict:
@@ -671,20 +737,24 @@ def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str,
     for both kernels: they compute one function), q, t and the lengths read
     once, scores and tb written once; for the decode 16 operations per step
     of the walk, one tb byte read per step, the packed paths and starts
-    written once.  ``plain``, where given, keeps the plain versions' outputs
-    and times of these inputs (a dict, filled on the first call), so that
-    several plans of one kernel on them run the plain versions once; the
-    kernel's own outputs land in it as ``"kernel"``."""
+    written once.  The decode also runs in the plan its shape does not take
+    (decode_forced), equal to the plain version too, into FORCED_PLANS.
+    ``plain``, where given, keeps the plain versions' outputs and times of
+    these inputs (a dict, filled on the first call), so that several plans
+    of one kernel on them run the plain versions and the other decode plan
+    once; the kernel's own outputs land in it as ``"kernel"``."""
     import numpy as np
+    from claragenomicsanalysis_tpu_torch.ops import tb_decode
     (name_nw, name_tb), nw, nw_plain, dec, dec_plain, width = \
         banded_kernels(kernel)
     plain = {} if plain is None else plain
+    first = "dec" not in plain
     ms_nw, (s_k, tb_k) = cuda_ms(lambda: nw(q, qlen, t, tlen, r), 5)
     if "nw" not in plain:
         plain["nw"] = cuda_ms(lambda: nw_plain(q, qlen, t, tlen, r), 1)
     ms_nw_plain, (s_p, tb_p) = plain["nw"]
     ms_tb, (pk_k, st_k) = cuda_ms(lambda: dec(tb_k, qlen, tlen, r), 5)
-    if "dec" not in plain:  # on the plain tb, which the kernel's must equal
+    if first:   # on the plain tb, which the kernel's must equal
         plain["dec"] = cuda_ms(lambda: dec_plain(tb_p, qlen, tlen, r), 1)
     ms_tb_plain, (pk_p, st_p) = plain["dec"]
     plain["kernel"] = (s_k, tb_k, pk_k, st_k)
@@ -697,12 +767,24 @@ def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str,
              f"W={width(r)} tb={tuple(tb_k.shape)}")
     if kernel == "diag":
         from claragenomicsanalysis_tpu_torch.ops import nw_diag
-        shape += (" plan " + "/".join(map(str, nw_diag.nw_diag_plan(
-            q.shape[1], t.shape[1], r))))
-    print(f"{tag} kernels ({shape}): {name_nw} kernel {ms_nw:.3f} ms vs "
-          f"plain {ms_nw_plain:.1f} ms (all {B} problems), scores+tb max "
-          f"diff {err_nw}; {name_tb} kernel {ms_tb:.3f} ms vs plain "
-          f"{ms_tb_plain:.1f} ms, packed+start max diff {err_tb}")
+        plan_nw = "/".join(map(str, nw_diag.nw_diag_plan(q.shape[1],
+                                                         t.shape[1], r)))
+    else:
+        from claragenomicsanalysis_tpu_torch.ops import nw_row
+        plan_nw = "/".join(map(str, nw_row.nw_row_plan(q.shape[1],
+                                                       t.shape[1], r)))
+    R4, _, W = tb_k.shape
+    plan_tb = tb_decode.tb_decode_plan(B, R4, W, kernel)
+    # the longest walk's steps, and the decode's cycles a step along it
+    TL = 16 * pk_k.shape[1]
+    walk = TL - int(st_k.min()) if B else 0
+    cycles = ms_tb * 1e3 * sm_mhz / max(walk, 1)
+    print(f"{tag} kernels ({shape}): {name_nw} ({plan_nw}) kernel "
+          f"{ms_nw:.3f} ms vs plain {ms_nw_plain:.1f} ms (all {B} problems), "
+          f"scores+tb max diff {err_nw}; {name_tb} ({'/'.join(map(str, plan_tb))}"
+          f") kernel {ms_tb:.3f} ms = {cycles:.0f} cycles a step of the "
+          f"longest walk ({walk} steps) vs plain {ms_tb_plain:.1f} ms, "
+          f"packed+start max diff {err_tb}")
     check(err_nw == 0 and err_tb == 0,
           f"a banded kernel disagrees with its plain version ({tag}, "
           f"{shape})")
@@ -724,10 +806,28 @@ def time_banded(q, qlen, t, tlen, r: int, sm_mhz: float, tag: str,
           f"{OPS_PER_BAND_CELL} ops, {io_bytes + tb_k.numel()} B -> "
           f"{b_nw[0]:.4f} ms ({b_nw[1]}); {name_tb} {steps} steps x "
           f"{OPS_PER_WALK_STEP} ops -> {b_tb[0]:.4f} ms ({b_tb[1]})")
-    return {name_nw: {"shape": shape, "ms": ms_nw, "plain_ms": ms_nw_plain,
-                      "bound": b_nw, "err": err_nw},
-            name_tb: {"shape": shape, "ms": ms_tb, "plain_ms": ms_tb_plain,
-                      "bound": b_tb, "err": err_tb}}
+    if first and B:     # the decode in the plan its shape does not take
+        other = "thread" if plan_tb[0] != "thread" else "staged"
+        with decode_forced(other):
+            forced = tb_decode.tb_decode_plan(B, R4, W, kernel)
+            ms_o, (pk_o, st_o) = cuda_ms(lambda: dec(tb_k, qlen, tlen, r), 5)
+        err_o = max(int((pk_o.long() - pk_p.long()).abs().max()),
+                    int((st_o.long() - st_p.long()).abs().max()))
+        print(f"{tag} {name_tb} forced into {'/'.join(map(str, forced))} "
+              f"(the plan takes {plan_tb[0]}): {ms_o:.3f} ms, packed+start "
+              f"max diff {err_o} vs the plain version")
+        check(err_o == 0 and forced[0].startswith(other),
+              f"{name_tb} in the forced plan {forced} disagrees with its "
+              f"plain version ({tag}, {shape})")
+        FORCED_PLANS[name_tb].append({
+            "variant": f"{tag} forced {'/'.join(map(str, forced))}",
+            "shape": shape, "ms": ms_o, "plain_ms": ms_tb_plain,
+            "bound": b_tb, "err": err_o})
+    return {name_nw: {"shape": shape, "plan": plan_nw, "ms": ms_nw,
+                      "plain_ms": ms_nw_plain, "bound": b_nw, "err": err_nw},
+            name_tb: {"shape": shape, "plan": "/".join(map(str, plan_tb)),
+                      "ms": ms_tb, "plain_ms": ms_tb_plain, "bound": b_tb,
+                      "err": err_tb, "cycles_a_step": cycles}}
 
 
 def myers_edge_pairs(rng):
@@ -836,7 +936,9 @@ def time_myers(q, qlen, t, tlen, sm_mhz: float) -> dict:
     B, Lt = q.shape[0], t.shape[1]
     words = int(((qlen.long() + 31) // 32).sum())
     nbytes = q.nbytes + t.nbytes + 8 * B + 4 * rows_k.numel() + 4 * B
+    wq = -(-q.shape[1] // 32)
     return {"ms": ms_k, "plain_ms": ms_p, "err": err, "words": words,
+            "plan": "/".join(map(str, myers.myers_plan(wq))),
             "Lt": Lt, "cells": 32 * words * Lt, "scores": s_k.cpu().numpy(),
             "bound": bound(OPS_PER_MYERS_WORD * words * Lt, nbytes, sm_mhz),
             "shape": f"B={B} Lq={q.shape[1]} Lt={Lt} "
@@ -1138,6 +1240,11 @@ POA_MSA = dict(max_sequence_size=128, max_sequences_per_poa=8,
                max_nodes_per_window=256)
 N_POA = 4096             # correction-shape windows (phases 12, 14, 15)
 N_POA_DEEP = 512         # deep windows (phase 13)
+#: the three POA main paths' windows (phases 12-14): (tag, BatchSize
+#: keywords, windows, backbone bases, edits, banded, MSA)
+POA_SHAPES = (("correction", POA_CORR, N_POA, 128, 6, False, False),
+              ("deep", POA_DEEP, N_POA_DEEP, 256, 12, True, False),
+              ("msa", POA_MSA, N_POA, 100, 5, False, True))
 N_POA_PLAIN = 64         # windows re-run through the plain path on the CPU
 MIN_OK_MSA = 0.97        # share of phase 14's windows that must be SUCCESS
 # int32 operations per unit of work, counted for the POA bounds (PERF.md)
@@ -1438,7 +1545,57 @@ def phase_poa_kernels() -> int:
         check(err_w == 0, "the one-kernel-per-window POA disagrees with its "
               "plain version")
         errs[banded] = max(probed["err"], err_w)
-    return max(errs.values())
+    return max(max(errs.values()), phase_add_edges())
+
+
+#: B6 edge batches of phase 10: (A, P, sequences a window, max nodes or None
+#: for the default, MSA); every added sequence has an N at position 6 (an N
+#: matches no node, so each makes a new node beside the clique there, and
+#: the next node's preds grow): A = 1; A + 1 = 32, 33 and 64 (a clique's
+#: members spill into a lane's second register past 32); P = 33 and 64 (the
+#: pred slots into a second lane chunk); P = 1 (the edge overflow); a node
+#: overflow
+ADD_EDGES = ((1, 4, 6, None, False), (31, 40, 48, None, True),
+             (32, 33, 56, None, False), (63, 64, 56, None, True),
+             (4, 1, 8, None, False), (4, 8, 8, 30, True))
+
+
+def phase_add_edges() -> int:
+    """Phase 10, B6's edges (ADD_EDGES): every lockstep launch of each
+    batch against the plain versions; the cliques and pred rows the batches
+    must fill, and the overflow statuses, checked.  -> the largest
+    difference."""
+    import numpy as np
+    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
+    err, statuses = 0, set()
+    for i, (A, P, S, max_nodes, msa) in enumerate(ADD_EDGES):
+        bs = BatchSize(max_sequence_size=24, max_sequences_per_poa=S,
+                       max_pred_per_node=P, max_aligned_per_node=A,
+                       max_nodes_per_window=max_nodes or 400)
+        L = bs.padded_seq
+        _, _, (seqs, weights, lens, n_seqs) = poa_window_arrays(
+            4, 20, S, 2, L, SEED + 60 + i)
+        seqs[:, 1:, 6] = -1
+        seqs[1, 1::2, 9] = -1
+        weights = ((seqs >= 0) * (1 + np.arange(L) % 3)).astype(np.int32)
+        out, probed = run_poa_arrays(bs, False, (seqs, weights, lens,
+                                                 n_seqs), True, msa)
+        err = max(err, probed["err"])
+        st = out[6]
+        nalig, npred = int(st.nalig.max()), int(st.npred.max())
+        statuses |= set(st.status.tolist())
+        print(f"phase 10 poa_add edges A={A} P={P} S={S} N={bs.padded_nodes}"
+              f"{' with the MSA' * msa}: every lockstep launch vs its plain "
+              f"version, max diff {probed['err']}; the largest clique "
+              f"{nalig}, the most preds {npred}, statuses "
+              f"{sorted(set(st.status.tolist()))}")
+        check(probed["err"] == 0,
+              f"B6 disagrees with its plain version at A={A} P={P}")
+        check((A < 31 or nalig >= 31) and (A < 63 or nalig > 32)
+              and npred >= min(P, 4), f"B6 edge batch A={A} P={P} filled "
+              f"too little: clique {nalig}, preds {npred}")
+    check({0, 23, 24} <= statuses, f"B6 edges: statuses {statuses}")
+    return err
 
 
 #: scores whose graph-NW cells pass the 24 bits of a 4-byte plane word
@@ -1746,6 +1903,25 @@ def check_graphs(tag: str, bs, banded: bool, windows, arrays, sub) -> None:
           f"and predw; {n_none} failed windows export None")
 
 
+def poa_plan(k: str, args) -> str:
+    """The plan a launch of POA kernel ``k`` on ``args`` takes."""
+    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_nwtb,
+                                                     poa_topsort)
+    if k == "poa_topsort":
+        return poa_topsort.topsort_variant(*args[2].shape[1:])
+    if k == "poa_nwtb":
+        seq, pred, sc, bw = args[0], args[6], args[10], args[11]
+        W, L = seq.shape
+        N, P = pred.shape[1:]
+        return "/".join(map(str, poa_nwtb.nwtb_plan(
+            W, N, P, L, bw, poa_nwtb.nwtb_word_bytes(N, L, sc))))
+    if k == "poa_add":
+        return "a warp a window"    # B6 has one, as B9
+    if k == "poa_consensus":
+        return poa_consensus.consensus_variant(*args[1].shape[1:], args[7])
+    return "a block a window"       # B9 has one
+
+
 def replay_poa_kernels(tag: str, kt, launches: dict, dev_ms: dict, bs,
                        sm_mhz: float) -> dict:
     """Each lockstep kernel at its largest launch of a run against its
@@ -1769,15 +1945,17 @@ def replay_poa_kernels(tag: str, kt, launches: dict, dev_ms: dict, bs,
         W = args[0].shape[0] if torch.is_tensor(args[0]) else \
             args[0].base.shape[0]
         shape = f"W={W} N={N} L={L} P={bs.max_pred_per_node}"
-        print(f"{tag} {k}: {launches[k]} launches, {dev_ms[k]:.3f} ms in "
+        plan = poa_plan(k, args)
+        print(f"{tag} {k} ({plan}): {launches[k]} launches, {dev_ms[k]:.3f} ms in "
               f"the run (largest launch {max(each):.3f} ms by its events); "
               f"replayed at the largest launch ({shape}): kernel {ms:.3f} ms "
               f"vs plain {ms_p:.1f} ms, max diff {err}; bound {what}, "
               f"{ops} int32 ops, {nbytes} B -> {b[0]:.4f} ms ({b[1]})")
         check(err == 0, f"{tag}: {k} disagrees with its plain version at its "
               f"largest launch")
-        per[k] = {"shape": shape, "ms": ms, "plain_ms": ms_p, "bound": b,
-                  "err": err, "launches": launches[k], "run_ms": dev_ms[k]}
+        per[k] = {"shape": shape, "plan": plan, "ms": ms, "plain_ms": ms_p,
+                  "bound": b, "err": err, "launches": launches[k],
+                  "run_ms": dev_ms[k]}
     return per
 
 
@@ -1979,7 +2157,8 @@ def phase_poa_window(tag: str, ref: dict, sm_mhz: float) -> dict:
     variant = {"variant": f"{tag}: a {other} a window (forced)",
                "shape": shape, "ms": ms_o, "plain_ms": ms_p, "bound": b,
                "err": err_o}
-    return {"poa_window": {"shape": shape + f" plan {mine}", "ms": ms,
+    return {"poa_window": {"shape": shape, "plan": "/".join(map(
+        str, poa_window.window_plan(W, bs, bw))), "ms": ms,
                            "plain_ms": ms_p, "bound": b, "err": err,
                            "launches": run["launches"]["poa_window"],
                            "run_ms": dev_ms}}, variant
@@ -2087,6 +2266,9 @@ def main() -> int:
 
     sm_mhz = phase_env()
     errs, b1_plans = phase_kernels(np.random.default_rng(SEED), sm_mhz)
+    for k, v in phase_decode_thresholds(np.random.default_rng(SEED + 4),
+                                        sm_mhz).items():
+        errs[k] = max(errs[k], v)
     phase_golden()
     t0 = time.perf_counter()
     pairs = main_path_pairs(N_PAIRS, SEED)
@@ -2124,6 +2306,9 @@ def main() -> int:
     for more in (phase_c8_align(sm_mhz), phase_c8_poa(sm_mhz)):
         for k, v in more.items():
             variants.setdefault(k, []).extend(v)
+
+    for k, v in FORCED_PLANS.items():
+        variants.setdefault(k, []).extend(v)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "claragenomicsanalysis_tpu")
@@ -2166,7 +2351,7 @@ def main() -> int:
             "library_ms": None,
             "paths": {p: {"launches": v["launches"],
                           "run_ms": v["run_ms"]} | (
-                {"shape": v["shape"], "ms": v["ms"],
+                {"shape": v["shape"], "plan": v.get("plan"), "ms": v["ms"],
                  "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
                  "bound_by": v["bound"][1]} if p in timed else {})
                 for p, v in runs.items()},
@@ -2205,7 +2390,7 @@ def main() -> int:
 
 
 # ------------------------------------------------------- measurement modes
-# Run by hand on the card; the smoke (no arguments) runs neither.
+# Run by hand on the card; the smoke (no arguments) runs none of them.
 #
 #   python3 chip_smoke.py --nwtb-split
 #     Where B5's time goes: forward pass, end cell and traceback, and the
@@ -2232,19 +2417,33 @@ def main() -> int:
 #     phase's cycles a window and share, and the cycles of a graph-NW row,
 #     an add and a topsort.
 #
+#   python3 chip_smoke.py --add-split
+#     Where B6's time goes: csrc/poa_add.cu built with CGA_ADD_SPLIT (lane
+#     0 of each window sums the SM cycles of the entry scan, the node
+#     choice, the clique update, the edge insert and the paths row, and
+#     counts the entries scanned, the bases consumed and the nodes made)
+#     into build/add_split/, run at B6's last lockstep launch of the first
+#     launch of windows of the correction, deep and MSA shapes; outputs
+#     checked equal to the kernel's.  Per shape it prints the kernel's and
+#     the stamped kernel's time, each part's cycles a window and share, and
+#     the cycles a consumed base.
+#
 #   python3 chip_smoke.py --turns PARENT_DIR
-#     B1 (nw_diag), B3 (nw_row), B7 (poa_topsort), B5 (poa_nwtb), B8
-#     (poa_consensus) and B10 (poa_window) of this checkout against the same
-#     kernels built from another checkout (the parent commit, unpacked with
-#     git archive), on identical inputs, each in its plan: B1 and B3 on 449
-#     pairs of 10,000-base queries at r = 72 (the ukkonen_row path's
-#     largest launch), B7, B5 and B8 at the last launch of a lockstep run at
-#     the correction, deep and MSA shapes, B10 at the window route's first
-#     launch at the correction and MSA shapes (the parent's refuses the
-#     deep one).  Both builds' outputs are checked equal, then each kernel is
-#     timed parent, this, this, parent, TURNS_ROUNDS times, TURNS_REPS
-#     launches a sample; the medians print with the card's name and power
-#     limit.
+#     B1 (nw_diag), B2 (tb_decode, both layouts), B3 (nw_row), B4 (myers),
+#     B5 (poa_nwtb), B6 (poa_add), B7 (poa_topsort), B8 (poa_consensus) and
+#     B10 (poa_window) of this checkout against the same kernels built from
+#     another checkout (the parent commit, unpacked with git archive), on
+#     identical inputs, each in its plan: B1, B3, B4 and B2 (the diag
+#     layout on B1's traceback, the row one on B3's) on 449 pairs of
+#     10,000-base queries at r = 72 (the ukkonen and ukkonen_row paths'
+#     largest launch), B2 also at a myers base case (133,138 pairs of 32 x
+#     32 at r = 32); B7, B5, B6 and B8 at the last launch of a lockstep run
+#     at the correction, deep and MSA shapes (B6 from the same state each
+#     launch, the copy untimed); B10 at the window route's first launch at
+#     those shapes.  Both builds' outputs are checked equal, then each
+#     kernel is timed parent, this, this, parent, TURNS_ROUNDS times,
+#     TURNS_REPS launches a sample; the medians print with the card's name
+#     and power limit.
 
 #: stamps added to csrc/poa_nwtb.cuh: per window clk[0..3] the starts of
 #: the forward pass, the end cell, the walk and its end, clk[4] the walk's
@@ -2539,17 +2738,136 @@ def window_split_main() -> int:
     return 0
 
 
+#: the parts of B6's split build (csrc/poa_add.cu built with CGA_ADD_SPLIT):
+#: each window sums the SM cycles of each into slots 0-4; slots 5-7 hold the
+#: path entries scanned, the bases consumed and the nodes made
+ADD_SPLIT_PARTS = ("entry scan", "node choice", "clique update",
+                   "edge insert", "paths row")
+
+
+def add_split_build() -> ctypes.CDLL:
+    """csrc/poa_add.cu built with CGA_ADD_SPLIT into build/add_split/: the
+    same launcher, which also adds each window's record."""
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    out = os.path.join(ROOT, "build", "add_split")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "libadd_split.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DCGA_ADD_SPLIT",
+                    "-I", str(_build.CSRC), "-shared", "-o", so,
+                    str(_build.CSRC / "poa_add.cu")], check=True)
+    lib = ctypes.CDLL(so)
+    lib.cga_poa_add.argtypes = list(_build.SIGNATURES["cga_poa_add"])
+    lib.cga_poa_add.restype = ctypes.c_int
+    lib.cga_poa_add_split_set.argtypes = [ctypes.c_void_p]
+    lib.cga_poa_add_split_set.restype = ctypes.c_int
+    lib.cga_error_string = _build.load().cga_error_string
+    return lib
+
+
+def last_add_args(cfg: dict, n: int, blen: int, edits: int, banded: bool,
+                  msa: bool) -> tuple:
+    """The inputs of B6's last launch of a lockstep run of the first
+    launch of windows of a main path's shape (this script's data and seed,
+    as phases 12-14 make it)."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             PoaScores)
+    from claragenomicsanalysis_tpu_torch.models import poa
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    bs = BatchSize(**cfg)
+    S, L = bs.max_sequences_per_poa, bs.padded_seq
+    W = len(poa.launch_chunks(n, bs, msa)[0])
+    _, _, arrays = poa_window_arrays(n, blen, S, edits, L, SEED + 20 + S + msa)
+    calls, orig = [], poa_window.add_alignment
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    poa_window.add_alignment = spy
+    try:
+        poa_window.run_windows(bs, PoaScores(), banded,
+                               *(torch.as_tensor(a[:W]).cuda()
+                                 for a in arrays), msa)
+    finally:
+        poa_window.add_alignment = orig
+    return calls[-1]
+
+
+def add_split_measure(lib, tag: str, args: tuple) -> None:
+    """B6's split at one launch: the stamped kernel's time beside the
+    kernel's, each part's cycles a window and share, the entries scanned
+    and the bases consumed a window, and the cycles a consumed base;
+    outputs checked equal to the kernel's."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import _build, poa_add
+    state = args[0]
+    W, N, P = state.pred.shape
+    A, L = state.alig.shape[2], args[3].shape[1]
+    act = args[6].cpu().numpy()
+    ms_k, want = cuda_ms(lambda: poa_add.add_alignment(*args), 5)
+    split = torch.zeros((W, 8), dtype=torch.int64, device="cuda")
+    if lib.cga_poa_add_split_set(split.data_ptr()):
+        raise RuntimeError("cga_poa_add_split_set failed")
+    real = _build.load
+    _build.load = lambda: lib
+    try:
+        got = poa_add.add_alignment(*args)
+        torch.cuda.synchronize()
+        c = split.cpu().numpy().astype(np.float64)[act]
+        ms, _ = cuda_ms(lambda: poa_add.add_alignment(*args), 3)
+    finally:
+        _build.load = real
+    check(maxdiff(got, want) == 0, f"{tag}: the split build of B6 disagrees "
+          f"with the kernel")
+    parts = c[:, :len(ADD_SPLIT_PARTS)]
+    tot = parts.sum()
+    scanned, taken, made = (c[:, k].sum() for k in (5, 6, 7))
+    print(f"{tag}: B6 at W={W} N={N} L={L} P={P} A={A}"
+          f"{' with paths' * (state.paths is not None)} ({int(act.sum())} "
+          f"windows active): kernel {ms_k:.3f} ms, stamped {ms:.3f} ms; "
+          f"cycles a window {parts.sum(1).mean():.0f}: " + ", ".join(
+              f"{k} {v:.0f} ({s_ / tot:.3f})" for k, v, s_ in zip(
+                  ADD_SPLIT_PARTS, parts.mean(0), parts.sum(0)))
+          + f"; a window scans {scanned / len(c):.1f} entries and consumes "
+          f"{taken / len(c):.1f} bases ({made / len(c):.1f} new nodes): "
+          f"{tot / max(taken, 1):.0f} cycles a consumed base")
+
+
+def add_split_main() -> int:
+    """``--add-split``: add_split_measure at B6's last lockstep launch of
+    the correction, deep and MSA shapes (this script's data and seed)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    lib = add_split_build()
+    for tag, cfg, n, blen, edits, banded, msa in POA_SHAPES:
+        add_split_measure(lib, tag, last_add_args(cfg, n, blen, edits,
+                                                  banded, msa))
+    return 0
+
+
 TURNS_ROUNDS, TURNS_REPS = 5, 5
-#: the parent's launchers (before B1 took its warp plan and B10 its plan,
-#: its graph in device scratch and the packed plane word)
+#: the parent's launchers (before B2 took its plan and B6 its plan and the
+#: warp walk)
 _TP, _TI = ctypes.c_void_p, ctypes.c_int
 TURNS_PARENT_SIGNATURES = {
-    "cga_nw_diag": (_TP,) * 7 + (_TI,) * 6 + (_TP,),
+    "cga_nw_diag": (_TP,) * 7 + (_TI,) * 9 + (_TP,),
+    "cga_tb_decode_diag": (_TP,) * 5 + (_TI,) * 5 + (_TP,),
     "cga_nw_row": (_TP,) * 7 + (_TI,) * 8 + (_TP,),
+    "cga_tb_decode_row": (_TP,) * 5 + (_TI,) * 5 + (_TP,),
+    "cga_myers": (_TP,) * 7 + (_TI,) * 5 + (_TP,),
     "cga_poa_topsort": (_TP,) * 9 + (_TI,) * 3 + (_TP,),
     "cga_poa_nwtb": (_TP,) * 15 + (_TI,) * 13 + (_TP,),
+    "cga_poa_add": (_TP,) * 17 + (_TI,) * 8 + (_TP,),
     "cga_poa_consensus": (_TP,) * 11 + (_TI,) * 4 + (_TP,),
-    "cga_poa_window": (_TP,) * 14 + (_TI,) * 13 + (_TP,),
+    "cga_poa_window": (_TP,) * 13 + (_TI,) * 18 + (_TP,),
 }
 
 
@@ -2564,6 +2882,8 @@ def turns_parent_lib(parent: str) -> ctypes.CDLL:
     for name, argtypes in TURNS_PARENT_SIGNATURES.items():
         getattr(lib, name).argtypes = list(argtypes)
         getattr(lib, name).restype = ctypes.c_int
+    lib.cga_error_string.argtypes = [ctypes.c_int]
+    lib.cga_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -2579,6 +2899,21 @@ def turns_stream():
 def turns_checked(name, err):
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def turns_via(lib, fn):
+    """``fn`` (a wrapper call) run with ops._build.load giving ``lib``: a
+    launcher whose signature both builds share, driven through the port."""
+    from claragenomicsanalysis_tpu_torch.ops import _build
+
+    def run():
+        real = _build.load
+        _build.load = lambda: lib
+        try:
+            return fn()
+        finally:
+            _build.load = real
+    return run
 
 
 def turns_banded_inputs(B=449, L=10_000, r=72, seed=SEED):
@@ -2600,72 +2935,119 @@ def turns_banded_inputs(B=449, L=10_000, r=72, seed=SEED):
     return [torch.from_numpy(a).cuda() for a in (q, qlen, t, tlen)], r
 
 
-def turns_banded_pairs(cur, par):
+def turns_decode_pair(cur, par, tag, tb, qlen, tlen, r, layout):
+    """B2 of both builds on one traceback: this one in its plan, the
+    parent's a thread a problem; outputs into buffers zeroed once (each
+    launch writes the same words)."""
     import torch
-    from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row
+    from claragenomicsanalysis_tpu_torch.ops import tb_decode
+    R4, B, W = tb.shape
+    TL = (tb_decode.path_slots(R4) if layout == "diag"
+          else tb_decode.path_slots_row(R4, r))
+    plan = tb_decode.tb_decode_plan(B, R4, W, layout)
+    copy = 0 if plan[0] == "thread" else int(plan[0].split("-")[1])
+    name = f"cga_tb_decode_{layout}"
+
+    def bufs():
+        return [torch.zeros((B, TL // 16), dtype=torch.int32, device="cuda"),
+                torch.empty(B, dtype=torch.int32, device="cuda")]
+
+    bc, bp = bufs(), bufs()
+
+    def run_cur():
+        turns_checked(name, getattr(cur, name)(
+            *turns_ptrs(tb, qlen, tlen, *bc), B, R4, W, r, TL, copy,
+            plan[1], plan[2], turns_stream()))
+        return bc
+
+    def run_par():
+        turns_checked(name, getattr(par, name)(
+            *turns_ptrs(tb, qlen, tlen, *bp), B, R4, W, r, TL,
+            turns_stream()))
+        return bp
+
+    return (f"B2 tb_decode ({layout}) {tag} B={B} R4={R4} W={W} (this: "
+            f"{'/'.join(map(str, plan))})", run_cur, run_par, None)
+
+
+def turns_banded_pairs(cur, par):
+    """B1, B3, B4 and B2 (both layouts) on the ukkonen paths' largest
+    launch, and B2 at a myers base case."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import myers, nw_diag, nw_row
     (q, qlen, t, tlen), r = turns_banded_inputs()
     B, Lq = q.shape
     Lt = t.shape[1]
     out = []
-    plan = nw_diag.nw_diag_plan(Lq, Lt, r)
-    assert plan[0] == "warp-shared"
-    Wd, Dpad = nw_diag.band_slots(r), nw_diag.padded_diagonals(Lq, Lt)
-    sd = [torch.empty(B, dtype=torch.int32, device="cuda"),
-          torch.empty((Dpad // 4, B, Wd), dtype=torch.int8, device="cuda")]
-    sd2 = [torch.empty_like(x) for x in sd]
 
-    def diag_cur():
-        err = cur.cga_nw_diag(*turns_ptrs(q, qlen, t, tlen, *sd), None, B, Lq,
-                              Lt, r, Wd, Dpad, plan[1], plan[2], 1,
-                              turns_stream())
-        turns_checked("nw_diag", err)
-        return sd
+    def diag():
+        return nw_diag.banded_nw_diag(q, qlen, t, tlen, r)
 
-    def diag_par():
-        err = par.cga_nw_diag(*turns_ptrs(q, qlen, t, tlen, *sd2), None, B,
-                              Lq, Lt, r, Wd, Dpad, turns_stream())
-        turns_checked("nw_diag", err)
-        return sd2
+    def row():
+        return nw_row.banded_nw_row(q, qlen, t, tlen, r)
 
-    out.append((f"B1 nw_diag B={B} Lq={Lq} r={r} (this: {plan})", diag_cur,
-                diag_par))
-    variant, cpt, groups, _ = nw_row.nw_row_plan(Lq, Lt, r)
-    assert variant == "shared"
-    Wr, R4 = nw_row.band_width_row(r), nw_row.tb_rows(Lq)
-    sr = [torch.empty(B, dtype=torch.int32, device="cuda"),
-          torch.empty((R4, B, Wr), dtype=torch.int8, device="cuda")]
-    sr2 = [torch.empty_like(x) for x in sr]
+    def bottom():
+        return myers.myers_bottom_row(q, qlen, t, tlen)
 
-    def row_cur():
-        err = cur.cga_nw_row(*turns_ptrs(q, qlen, t, tlen, *sr), None, B, Lq,
-                             Lt, r, Wr, R4, cpt, groups, turns_stream())
-        turns_checked("nw_row", err)
-        return sr
-
-    def row_par():
-        err = par.cga_nw_row(*turns_ptrs(q, qlen, t, tlen, *sr2), None, B, Lq,
-                             Lt, r, Wr, R4, cpt, groups, turns_stream())
-        turns_checked("nw_row", err)
-        return sr2
-
-    out.append((f"B3 nw_row B={B} Lq={Lq} r={r}", row_cur, row_par))
+    out.append((f"B1 nw_diag B={B} Lq={Lq} r={r} (this: "
+                f"{nw_diag.nw_diag_plan(Lq, Lt, r)})", diag,
+                turns_via(par, diag), None))
+    out.append((f"B3 nw_row B={B} Lq={Lq} r={r} (this: "
+                f"{nw_row.nw_row_plan(Lq, Lt, r)})", row, turns_via(par, row),
+                None))
+    out.append((f"B4 myers B={B} Lq={Lq} Lt={Lt}", bottom,
+                turns_via(par, bottom), None))
+    out.append(turns_decode_pair(cur, par, "ukkonen", diag()[1], qlen, tlen,
+                                 r, "diag"))
+    out.append(turns_decode_pair(cur, par, "ukkonen_row", row()[1], qlen,
+                                 tlen, r, "row"))
+    rng = np.random.default_rng(SEED)
+    Bb = 133_138
+    qb, tb_ = (torch.from_numpy(rng.integers(0, 4, (Bb, 32), dtype=np.int8))
+               .cuda() for _ in range(2))
+    ln = torch.full((Bb,), 32, dtype=torch.int32, device="cuda")
+    out.append(turns_decode_pair(
+        cur, par, "myers base case",
+        nw_diag.banded_nw_diag(qb, ln, tb_, ln, 32)[1], ln, ln, 32, "diag"))
     return out
 
 
-def turns_parent_window_smem(bs) -> int:
-    """The parent's B10 shared memory a window (its graph, level, order and
-    rank, and a scratch region for the largest phase), which its launcher
-    checks."""
-    N, L, MC = bs.padded_nodes, bs.padded_seq, bs.max_consensus_size
-    P, A = bs.max_pred_per_node, bs.max_aligned_per_node
-    return 4 * (N * (8 + 2 * P + A)
-                + max(2 * N, L + 3 * N + N * P, 6 * N + N * P + MC))
+def turns_add_pair(cur, par, tag, args):
+    """B6 of both builds at one launch, each from the same state: the
+    state is copied into each build's buffers before every launch, outside
+    the timed span."""
+    import torch
+    state, pn, pp, seq, weights, k0, act, max_nodes, seq_idx = args
+    W, N, P = state.pred.shape
+    A, L = state.alig.shape[2], seq.shape[1]
+    S = 0 if state.paths is None else state.paths.shape[1]
+    s_row = 0 if S == 0 else min(max(seq_idx, 0), S - 1)
+    ins = [x.contiguous() for x in (pn, pp, seq, weights, k0)] + [
+        act.to(torch.int32)]
+    bc, bp = state.clone(), state.clone()
+
+    def prep():
+        for b in (bc, bp):
+            for d, s_ in zip(b.tensors(), state.tensors()):
+                d.copy_(s_)
+
+    def launch(lib, buf):
+        paths = buf.paths.data_ptr() if S else None
+        turns_checked("poa_add", lib.cga_poa_add(
+            *turns_ptrs(*ins, *buf[:10]), paths, W, N, P, A, L, S, s_row,
+            max_nodes, turns_stream()))
+        return buf.tensors()
+
+    return (f"B6 poa_add {tag} W={W} N={N} P={P} A={A}",
+            lambda: launch(cur, bc), lambda: launch(par, bp), prep)
 
 
 def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
     """B7, B5 and B8 at the last launch of a lockstep run of these windows,
-    and B10 at the window route's first launch of them (where the parent's
-    fits a block: not at the deep shape)."""
+    B6 at the last launch of the lockstep run of their first launch of
+    windows (last_add_args), and B10 at the window route's first launch of
+    them."""
     import torch
     from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
                                                              PoaScores)
@@ -2734,8 +3116,9 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
         return co2
 
     shape = f"W={W} N={N} P={P}"
-    out = [(f"B7 poa_topsort {tag} {shape}", topo_cur, topo_par),
-           (f"B8 poa_consensus {tag} {shape} MC={MC}", cons_cur, cons_par)]
+    out = [(f"B7 poa_topsort {tag} {shape}", topo_cur, topo_par, None),
+           (f"B8 poa_consensus {tag} {shape} MC={MC}", cons_cur, cons_par,
+            None)]
 
     # B5, in its plan (its body now in poa_nwtb.cuh)
     *nin, sc, bw = seen["graph_nw_traceback"]
@@ -2763,45 +3146,40 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
         return bufs[1:]     # the plane outside the band is never written
 
     out.insert(1, (f"B5 poa_nwtb {tag} {shape} L={Ln} ({variant})",
-                   lambda: nw_call(cur, nb), lambda: nw_call(par, nb2)))
+                   lambda: nw_call(cur, nb), lambda: nw_call(par, nb2), None))
+    out.append(turns_add_pair(cur, par, tag, last_add_args(
+        cfg, n, blen, edits, banded, msa)))
 
-    # B10 at the window route's first launch
-    smem_par = turns_parent_window_smem(bs)
-    if smem_par > 232_448 - 1024:
-        return out
+    # B10 at the window route's first launch (one launcher in both builds)
     Ww = len(poa.launch_chunks(n, bs, msa, kernel="window")[0])
     wa = [torch.as_tensor(a[:Ww]).contiguous().cuda() for a in arrays]
-    sc = PoaScores()
     bw = bs.band_width if banded else 0
-    A, Sw = bs.max_aligned_per_node, bs.max_sequences_per_poa
-    i32 = dict(dtype=torch.int32, device="cuda")
-    pw = [torch.empty((Ww, N + 1, L + 1), **i32)] + [
-        torch.empty((Ww, N + L), **i32) for _ in range(2)] + [
-        torch.empty((Ww, Sw, L), **i32) if msa else None]
-    po = [torch.empty((Ww, MC), **i32) for _ in range(2)] + [
-        torch.empty(Ww, **i32)] + (
-        [torch.empty((Ww, Sw, N), **i32), torch.empty(Ww, **i32)] if msa
-        else [torch.zeros((Ww, Sw, 1), **i32), torch.zeros(Ww, **i32)]) + [
-        torch.empty(Ww, **i32)]
 
-    def win_par():
-        ptr = [t.data_ptr() if t is not None else None for t in pw]
-        err = par.cga_poa_window(
-            *turns_ptrs(*wa), *ptr, *turns_ptrs(*po[:3], po[5]),
-            po[3].data_ptr() if msa else None,
-            po[4].data_ptr() if msa else None, Ww, N, P, A, Sw, L, MC,
-            bs.max_nodes_per_window, sc.match_score, sc.mismatch_score,
-            sc.gap_score, bw, smem_par, turns_stream())
-        turns_checked("poa_window", err)
-        return po
-
-    def win_cur():
-        return poa_window.poa_window(*wa, bs, sc, banded, msa)
+    def win():
+        return poa_window.poa_window(*wa, bs, PoaScores(), banded, msa)
 
     plan = poa_window.window_plan(Ww, bs, bw)
     out.append((f"B10 poa_window {tag} W={Ww} N={N} L={L} P={P}"
-                f"{' msa' * msa} (this: {plan})", win_cur, win_par))
+                f"{' msa' * msa} (this: {plan})", win, turns_via(par, win),
+                None))
     return out
+
+
+def turns_prepped_ms(fn, prep, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card by CUDA events around each
+    launch alone, ``prep()`` run untimed before each."""
+    import torch
+    total = 0.0
+    for _ in range(reps):
+        prep()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def kernel_turns_main(parent: str) -> int:
@@ -2826,17 +3204,20 @@ def kernel_turns_main(parent: str) -> int:
                              12, True)
     pairs += turns_poa_pairs(cur, par, "msa", POA_MSA, N_POA, 100, 5,
                              False, msa=True)
-    for name, fc, fp in pairs:
+    for name, fc, fp, prep in pairs:
+        if prep:
+            prep()
         a, b = fc(), fp()
         torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b, strict=True)):
             raise RuntimeError(f"{name}: the two builds disagree")
         fc(), fp()  # warm
         ms = {"parent": [], "this": []}
         for _ in range(TURNS_ROUNDS):
             for who, f in (("parent", fp), ("this", fc), ("this", fc),
                            ("parent", fp)):
-                ms[who].append(cuda_ms(f, TURNS_REPS)[0])
+                ms[who].append(cuda_ms(f, TURNS_REPS)[0] if prep is None
+                               else turns_prepped_ms(f, prep, TURNS_REPS))
         mp, mc = (statistics.median(ms[k]) for k in ("parent", "this"))
         print(f"{name}: parent {mp:.4f} ms, this {mc:.4f} ms "
               f"({(mc / mp - 1) * 100:+.1f} %), outputs equal; samples "
@@ -2850,10 +3231,11 @@ if __name__ == "__main__":
         sys.exit(nwtb_split_main())
     if sys.argv[1:] == ["--window-split"]:
         sys.exit(window_split_main())
+    if sys.argv[1:] == ["--add-split"]:
+        sys.exit(add_split_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--turns":
         sys.exit(kernel_turns_main(sys.argv[2]))
     if len(sys.argv) > 1:
         sys.exit("usage: python3 chip_smoke.py [--nwtb-split | "
-                 "--window-split | --turns "
-                 "PARENT_DIR]")
+                 "--window-split | --add-split | --turns PARENT_DIR]")
     sys.exit(main())

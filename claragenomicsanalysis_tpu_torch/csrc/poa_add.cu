@@ -24,14 +24,27 @@
 // and stores into the window's graph (a few hundred bytes touched, a few
 // dozen int32 operations), and the steps of a window are serial.  Latency
 // of that chain, not bytes or operations, bounds a window; the card's
-// throughput comes from many windows walking at once.
+// throughput comes from many windows walking at once.  The first design
+// (lane 0 walking every path entry alone) spent two thirds of a window in
+// the edge insert: a serial scan of the pred slots and a shift of every slot
+// above the insert point, each a dependent load and store (chip_smoke.py
+// --add-split).
 //
-// Design.  One warp per window, its lane 0 walking the path over the
-// graph in device memory (the lines it touches stay in L1), so that no
-// two windows share a warp and diverge; the whole warp clears the paths row
-// first.  The state is updated in place; the
-// wrapper hands the kernel a copy, which keeps the entry point pure.  The
-// clique sort holds at most kMaxMembers = A + 1 ids in local memory.
+// Design.  One warp a window, all 32 lanes walking together (poa_add.cuh
+// add_walk): the path read 32 entries at a time and a ballot keeping the
+// consumed ones; the node choice a clique slot a lane and a ballot; the
+// clique list ranked over shuffles, no array indexed at run time (nothing
+// in local memory); the pred slots a lane each, found and counted by
+// ballots, shifted by a shuffle.  Each step reads what the steps before
+// wrote, so a step's time is its rounds of L2 latency: the loads that
+// depend on the same value go out together, so a base that lands on its
+// node waits on one round (its node's row).  The graph stays in device
+// memory: a copy of it in shared memory made a window's walk shorter but
+// fitted a few windows an SM at the correction shape, where device memory
+// keeps all of a launch's windows in flight at once, and the launch ran
+// longer (PERF.md).  The whole warp clears the paths row first.  The state
+// is updated in place; the wrapper hands the kernel a copy, which keeps the
+// entry point pure.
 
 #include "poa_add.cuh"
 
@@ -51,12 +64,18 @@ __global__ void poa_add_kernel(
   const int w = blockIdx.x;
   if (!act[w]) return;
   int32_t* prow = nullptr;
+#ifdef CGA_ADD_SPLIT
+  const long long t_row = clock64();
+#endif
   if (paths != nullptr) {
     prow = paths + ((size_t)w * S + s_row) * L;
     for (int i = threadIdx.x; i < L; i += blockDim.x) prow[i] = -1;
     __syncwarp();
   }
-  if (threadIdx.x != 0) return;
+#ifdef CGA_ADD_SPLIT
+  if (threadIdx.x == 0)
+    cga::g_add_split[(size_t)w * cga::kAddSplitSlots + 4] += clock64() - t_row;
+#endif
   const int TL = N + L;
   const size_t wn = (size_t)w * N;
   int nc = node_count[w];
@@ -65,9 +84,11 @@ __global__ void poa_add_kernel(
                 seq + (size_t)w * L, weights + (size_t)w * L, k0s[w],
                 base + wn, cov + wn, npred + wn, nsucc + wn, nalig + wn,
                 pred + wn * P, predw + wn * P, alig + wn * A, nc, st, prow, N,
-                P, A, L, max_nodes);
-  node_count[w] = nc;
-  status[w] = st;
+                P, A, L, max_nodes, threadIdx.x);
+  if (threadIdx.x == 0) {
+    node_count[w] = nc;
+    status[w] = st;
+  }
 }
 
 }  // namespace
@@ -98,3 +119,10 @@ extern "C" int cga_poa_add(const void* pn, const void* pp, const void* seq,
       static_cast<int32_t*>(paths), N, P, A, L, S, s_row, max_nodes);
   return (int)cudaGetLastError();
 }
+
+#ifdef CGA_ADD_SPLIT
+// the split build's record: W x kAddSplitSlots int64, zeroed by the caller
+extern "C" int cga_poa_add_split_set(void* split) {
+  return (int)cudaMemcpyToSymbol(cga::g_add_split, &split, sizeof(split));
+}
+#endif

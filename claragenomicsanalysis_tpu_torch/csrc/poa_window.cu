@@ -45,8 +45,8 @@
 //   block wide, the move in a packed plane word (4 or 8 bytes, Word), a
 //   one-load walk.  It reads the graph with plain loads, since this kernel
 //   writes it between sequences (kLdg false).
-// - The walk of the traceback and the add run on the group's thread 0, as
-//   in the lockstep route.
+// - The walk of the traceback runs on the group's thread 0, the add on its
+//   first warp (poa_add.cuh, the lockstep route's device function).
 // The wrapper counts the shared memory of a window (window_smem_bytes) and
 // passes it; a count other than this kernel's layout is refused.  Built with
 // CGA_WINDOW_SPLIT (chip_smoke.py --window-split), thread 0 of each window
@@ -264,13 +264,15 @@ __device__ __forceinline__ void window_body(WINDOW_PARAMS) {
         for (int i = gt; i < L; i += gn) prow[i] = -1;
         group_sync<kWarp>();
       }
-      if (gt == 0) {
+      if (gt < 32) {  // the group's first (or only) warp
         int ncv = nc, st = 0;
         add_walk(pnw, ppw, SQ + (size_t)s * L, WT + (size_t)s * L,
                  state[kK0], base, cov, npred, nsucc, nalig, pred, predw,
-                 alig, ncv, st, prow, N, P, A, L, sh.max_nodes);
-        state[kNc] = ncv;
-        state[kSt] = changed ? kLoopExceeded : st;
+                 alig, ncv, st, prow, N, P, A, L, sh.max_nodes, gt);
+        if (gt == 0) {
+          state[kNc] = ncv;
+          state[kSt] = changed ? kLoopExceeded : st;
+        }
       }
     } else if (gt == 0) {
       state[kSt] = kBandExceeded;

@@ -43,8 +43,8 @@ _NODE_OVF = int(StatusType.NODE_COUNT_EXCEEDED_MAXIMUM_GRAPH_SIZE)
 _EDGE_OVF = int(StatusType.EDGE_COUNT_EXCEEDED_MAXIMUM_GRAPH_SIZE)
 _OK = int(StatusType.SUCCESS)
 _BIG = 2**30
-#: largest aligned-clique capacity A the kernel takes (it sorts A + 1 members
-#: in registers)
+#: largest aligned-clique capacity A the kernel takes (it ranks A + 1
+#: members in registers, two a lane)
 MAX_ALIGNED = 63
 
 

@@ -15,7 +15,8 @@ array, so a problem with an INF score walks bounded garbage; callers drop it
 by status.
 
 - :func:`decode_diag` and :func:`decode_row` launch their kernels in
-  ``csrc/tb_decode.cu`` for CUDA tensors, count the launches in
+  ``csrc/tb_decode.cu`` for CUDA tensors, in the plan
+  :func:`tb_decode_plan` gives the shape, count the launches in
   ``decode_diag.launches`` / ``decode_row.launches`` and time them inside a
   ``utils.profiling.kernel_times()`` block; for CPU tensors they run their
   plain versions.
@@ -44,6 +45,49 @@ def path_slots_row(tb_rows: int, band_radius: int) -> int:
     """TL of the row layout: a global path inside the band has at most
     qlen + tlen <= 2 * Lq + r moves, Lq = 4 * tb_rows."""
     return round_up(2 * 4 * tb_rows + 2 * band_radius + 8, 2048)
+
+
+#: SMs of the card (an H100 SXM): the staged plan puts fewer problems in a
+#: block where a launch has too few to give every SM a block of four
+SMS = 132
+#: problems with fewer packed rows keep the thread plan: many short walks in
+#: flight hide each other's latency, and a chunk would hold the whole walk
+STAGE_MIN_ROWS = 64
+#: the widest row the staged plan streams: a walk's lane moves by at most one
+#: a step, so a wider row would stream bytes the walk never reads
+STAGE_MAX_WIDTH = 512
+#: the most rows a chunk holds, and the shared memory one problem's ring of
+#: two chunks may take
+CHUNK_ROWS, RING_BYTES = 64, 32 * 1024
+#: problems a block of the thread plan (one a thread)
+THREAD_PROBLEMS = 128
+
+
+def tb_decode_plan(B: int, R4: int, W: int, layout: str) -> tuple:
+    """-> (variant, problems_a_block, rows_a_chunk) of a decode of B
+    problems of a ``(R4, B, W)`` traceback in ``layout`` ("diag" or "row":
+    one rule serves both).
+
+    ``"staged-16"`` / ``"staged-8"`` (a warp a problem streaming its packed
+    rows through a shared-memory ring of two chunks, 16- or 8-byte copies as
+    W is a multiple of 16 or only of 8) where the problem has at least
+    STAGE_MIN_ROWS rows and W is a multiple of 8 of at most
+    STAGE_MAX_WIDTH; a chunk holds CHUNK_ROWS rows, fewer where two would
+    pass RING_BYTES; 4, 2 or 1 problems a block, the most that still give
+    every one of the SMS SMs a block and whose rings fit a block's shared
+    memory.  Every other shape (and one whose ring of one-row chunks would
+    not fit a block): ``"thread"`` (a thread a problem, THREAD_PROBLEMS a
+    block, no chunk)."""
+    if layout not in ("diag", "row"):
+        raise ValueError(f"unknown traceback layout {layout!r}")
+    if R4 < STAGE_MIN_ROWS or W <= 0 or W % 8 or W > STAGE_MAX_WIDTH:
+        return "thread", THREAD_PROBLEMS, 0
+    rows = min(CHUNK_ROWS, RING_BYTES // (2 * W))
+    if rows < 1 or 2 * rows * W > _build.SMEM_PER_BLOCK:
+        return "thread", THREAD_PROBLEMS, 0
+    problems = next(n for n in (4, 2, 1) if n == 1 or (
+        n * SMS <= B and n * 2 * rows * W <= _build.SMEM_PER_BLOCK))
+    return ("staged-16" if W % 16 == 0 else "staged-8"), problems, rows
 
 
 def _check(tb, qlen, tlen):
@@ -104,9 +148,10 @@ def _walk_torch(tb, qlen, tlen, band_radius, TL, cell):
     return packed.to(torch.int32), k.to(torch.int32)
 
 
-def _launch(name, launcher, tb, qlen, tlen, band_radius, TL):
-    """Launch the library's ``launcher`` on CUDA tensors, timed as kernel
-    ``name``, unless the batch is empty -> (packed, start)."""
+def _launch(name, launcher, layout, tb, qlen, tlen, band_radius, TL):
+    """Launch the library's ``launcher`` on CUDA tensors in the plan of
+    :func:`tb_decode_plan`, timed as kernel ``name``, unless the batch is
+    empty -> (packed, start)."""
     _check(tb, qlen, tlen)
     if tb.device.type != "cuda":
         raise ValueError(f"no kernel for device {tb.device}")
@@ -116,13 +161,15 @@ def _launch(name, launcher, tb, qlen, tlen, band_radius, TL):
     start = torch.empty(B, dtype=torch.int32, device=tb.device)
     if B == 0:
         return packed, start
+    variant, problems, rows = tb_decode_plan(B, R4, W, layout)
+    copy = 0 if variant == "thread" else int(variant.split("-")[1])
     lib = _build.load()
     with torch.cuda.device(tb.device), kernel_span(
             name, (tb, qlen, tlen, band_radius), B * TL):
         err = getattr(lib, launcher)(
             tb.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             packed.data_ptr(), start.data_ptr(), B, R4, W, band_radius, TL,
-            torch.cuda.current_stream().cuda_stream)
+            copy, problems, rows, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, name)
     return packed, start
 
@@ -144,7 +191,7 @@ def decode_diag(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
     """
     if tb.device.type == "cpu":
         return decode_diag_torch(tb, qlen, tlen, band_radius)
-    out = _launch("tb_decode", "cga_tb_decode_diag", tb, qlen, tlen,
+    out = _launch("tb_decode", "cga_tb_decode_diag", "diag", tb, qlen, tlen,
                   band_radius, path_slots(tb.shape[0]))
     if tb.shape[1]:             # an empty batch launches nothing
         decode_diag.launches += 1
@@ -171,8 +218,8 @@ def decode_row(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
     """
     if tb.device.type == "cpu":
         return decode_row_torch(tb, qlen, tlen, band_radius)
-    out = _launch("tb_decode_row", "cga_tb_decode_row", tb, qlen, tlen,
-                  band_radius, path_slots_row(tb.shape[0], band_radius))
+    out = _launch("tb_decode_row", "cga_tb_decode_row", "row", tb, qlen,
+                  tlen, band_radius, path_slots_row(tb.shape[0], band_radius))
     if tb.shape[1]:             # an empty batch launches nothing
         decode_row.launches += 1
     return out
