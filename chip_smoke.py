@@ -12,9 +12,11 @@ Phases, one line or more each:
      the anti-diagonal one (B1) in each of its plans (a warp a problem at
      K = 1-8 slots a lane, q and t staged or read through L1; a block a
      problem, shared or device: NW_DIAG_PLANS), each timed with its bound,
-     and the row one (B3, at r = 1, 3, 8, 31, 64 and two bands wider than a
-     block's 1,024 threads), each row result also against B1's scores and
-     paths;
+     and the row one (B3) in each of its plans (a warp a problem at K = 1-8
+     band lanes a lane, q and t staged or read through L1, r = 127 the
+     widest; a block a problem from r = 128, shared or device:
+     NW_ROW_PLANS; and two bands wider than a block's 1,024 threads), each
+     row result also against B1's scores and paths;
   3. the traceback-decode kernels (B2, both layouts) against their plain
      versions on the same tb, and at their plan's row threshold (60 and 64
      packed rows); every B2 launch this script replays (phases 2, 3, 5, 7,
@@ -56,7 +58,9 @@ Phases, one line or more each:
      each of its plans (a warp or a block a window, rings of 8, 2 and 0
      rows) and on 8-byte plane words; then B6's edges (clique capacities
      A = 1, 31, 32 and 63 filled, the edge and node overflows), every
-     lockstep launch against the plain versions;
+     lockstep launch against the plain versions; then B7's edges: every
+     topsort launch of a lockstep run with its hint, with hints wrong on
+     purpose and on a window given a cycle, in each of its plans;
  10b. B5's variants (a warp or a block a window, with the ring, a 2-row
      ring and none; 72 pred slots; 8-byte plane words) against its plain
      version at every lockstep launch;
@@ -102,7 +106,7 @@ Phases, one line or more each:
      window) and of 9,000-base sequences (B7 and B8 on device memory, B5
      past L = 8,191), each kernel at its largest launch against its plain
      version with times and bounds.
-Then a line per redesigned kernel (B1, B2, B4, B5, B6, B10) with its time
+Then a line per redesigned kernel (B1-B7, B10) with its time
 at each main path's largest launch beside the first design's as PERF.md
 records it (FIRST_DESIGN_MS, not measured by this run) and its bound, and a
 line per variant of phases 2, 3, 6, 15, 17 and 18.  Then one JSON line
@@ -163,7 +167,11 @@ FIRST_DESIGN_MS = {("poa_nwtb", "poa"): 1.368, ("poa_nwtb", "poa_deep"): 2.042,
                    ("tb_decode", "ukkonen"): 5.133, ("tb_decode", "myers"): 0.121,
                    ("tb_decode_row", "ukkonen_row"): 4.760,
                    ("poa_add", "poa"): 0.404, ("poa_add", "poa_deep"): 0.623,
-                   ("poa_add", "poa_msa"): 0.310}
+                   ("poa_add", "poa_msa"): 0.310,
+                   ("nw_row", "ukkonen_row"): 5.232,
+                   ("poa_topsort", "poa"): 0.246,
+                   ("poa_topsort", "poa_deep"): 0.400,
+                   ("poa_topsort", "poa_msa"): 0.215}
 FIRST_MYERS_MS = {"score pass": 7.023, "Hirschberg level 0": 9.327}
 
 
@@ -465,8 +473,9 @@ def phase_kernels(rng, sm_mhz: float):
         plans.append(timed["nw_diag"] | {
             "variant": f"{plan[0]} K={plan[1]} problems={plan[2]}"})
     errs = {"nw_diag": err_nw, "tb_decode": err_tb}
-    errs |= phase_row_kernels(pairs, (1, 3, 8, 31, 64))
-    wide = phase_row_kernels(wide_band_pairs(rng, 64), (600, 2100))
+    errs |= phase_row_kernels(pairs, NW_ROW_PLANS)
+    wide = phase_row_kernels(wide_band_pairs(rng, 64),
+                             ((600, None), (2100, None)))
     return errs | {k: max(v, errs[k]) for k, v in wide.items()}, plans
 
 
@@ -500,45 +509,66 @@ def phase_decode_thresholds(rng, sm_mhz: float) -> dict:
     return errs
 
 
-def phase_row_kernels(pairs, radii) -> dict:
+#: B3's plans reached in phase 2: (radius, SMEM_PER_BLOCK or None); a
+#: radius for each K = 1..8 band lanes a lane of the warp plan, 127 and 128
+#: (W = 256 / 264, the warp / block switch), and the lowered SMEM_PER_BLOCK
+#: moving a warp launch to reading q and t through L1 and a block launch to
+#: device memory
+NW_ROW_PLANS = ((1, None), (16, None), (40, None), (60, None), (72, None),
+                (90, None), (100, None), (127, None), (128, None), (16, 600),
+                (128, 600))
+
+
+def phase_row_kernels(pairs, cases) -> dict:
     """B3 and B2's row decode against their plain versions on ``pairs`` at
-    each radius of ``radii``: scores and the whole tb, packed paths and
-    starts of the finite rows; the row route's scores and paths against
-    B1's.  -> the largest differences seen."""
+    each (radius, SMEM_PER_BLOCK) of ``cases``: scores and the whole tb,
+    packed paths and starts of the finite rows; the row route's scores and
+    paths against B1's.  -> the largest differences seen."""
     import numpy as np
     import torch
     from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row, tb_decode
     from claragenomicsanalysis_tpu_torch.ops.convert import from_reference
     q, qlen, t, tlen = from_reference(*pack(pairs), device="cuda")[:4]
     err_nw = err_tb = 0
-    for r in radii:
-        s_k, tb_k = nw_row.banded_nw_row(q, qlen, t, tlen, r)
-        torch.cuda.synchronize()
-        s_p, tb_p = nw_row.banded_nw_row_torch(q, qlen, t, tlen, r)
+    plain = {}      # a radius's plain outputs and B1's, once for its plans
+    for r, limit in cases:
+        with smem_forced(limit):
+            plan = nw_row.nw_row_plan(q.shape[1], t.shape[1], r)
+            s_k, tb_k = nw_row.banded_nw_row(q, qlen, t, tlen, r)
+            torch.cuda.synchronize()
+        if r not in plain:     # the decode on the plain tb, which the
+            s_d, tb_d = nw_diag.banded_nw_diag(q, qlen, t, tlen, r)
+            s_p, tb_p = nw_row.banded_nw_row_torch(q, qlen, t, tlen, r)
+            plain[r] = (s_p, tb_p, tb_decode.decode_row_torch(
+                tb_p, qlen, tlen, r), s_d,
+                tb_decode.traceback_paths_device(tb_d, qlen, tlen, r))
+        s_p, tb_p, (pp, sp), s_d, paths_d = plain[r]    # kernel's must equal
         d_s = int((s_k.long() - s_p.long()).abs().max())
         d_tb = int((tb_k.int() - tb_p.int()).abs().max())
         err_nw = max(err_nw, d_s, d_tb)
         ok = s_k < nw_row.INF
         pk, sk = tb_decode.decode_row(tb_k, qlen, tlen, r)
         torch.cuda.synchronize()
-        pp, sp = tb_decode.decode_row_torch(tb_k, qlen, tlen, r)
         d_p = int((pk[ok].long() - pp[ok].long()).abs().max())
         d_st = int((sk[ok].long() - sp[ok].long()).abs().max())
         err_tb = max(err_tb, d_p, d_st)
-        s_d, tb_d = nw_diag.banded_nw_diag(q, qlen, t, tlen, r)
-        paths_d = tb_decode.traceback_paths_device(tb_d, qlen, tlen, r)
         paths = tb_decode.unpack_paths(pk.cpu().numpy(), sk.cpu().numpy())
         bad = [b for b in np.flatnonzero(ok.cpu().numpy())
                if paths[b] != paths_d[b]]
         W = nw_row.band_width_row(r)
-        print(f"phase 2 nw_row r={r}: B={len(pairs)} Lq={q.shape[1]} "
+        print(f"phase 2 nw_row r={r} plan {plan}: B={len(pairs)} "
+              f"Lq={q.shape[1]} "
               f"Lt={t.shape[1]} W={W} finite={int(ok.sum())} "
               f"score_diff={d_s} tb_diff={d_tb}; "
               f"phase 3 tb_decode_row: packed_diff={d_p} start_diff={d_st}; "
               f"vs nw_diag: scores equal {torch.equal(s_k, s_d)}, "
               f"path_mismatches={len(bad)}")
         check(d_s == 0 and d_tb == 0,
-              f"nw_row kernel disagrees with its plain version at r={r}")
+              f"nw_row kernel disagrees with its plain version at r={r} "
+              f"({plan})")
+        check(("device" in plan[0]) == (limit is not None)
+              and plan[0].startswith("warp" if r < 128 else "block"),
+              f"nw_row at r={r}, SMEM_PER_BLOCK {limit}: plan {plan}")
         check(d_p == 0 and d_st == 0,
               f"tb_decode_row kernel disagrees with its plain version at "
               f"r={r}")
@@ -1204,8 +1234,8 @@ def phase_c8_align(sm_mhz: float) -> dict:
     for (name, algorithm), (q, qlen, t, tlen, r) in largest.items():
         kernel = "row" if name == "nw_row" else "diag"
         Lq, Lt = q.shape[1], t.shape[1]
-        plan = (nw_diag.nw_diag_plan(Lq, Lt, r)[0] if kernel == "diag"
-                else nw_row.nw_row_plan(Lq, Lt, r))
+        plan = (nw_diag.nw_diag_plan(Lq, Lt, r) if kernel == "diag"
+                else nw_row.nw_row_plan(Lq, Lt, r))[0]
         check("device" in plan, f"C8 {algorithm}: {name}'s largest launch "
               f"(r={r}, Lq={Lq}, Lt={Lt}) is not on device memory: {plan}")
         per = time_banded(q, qlen, t, tlen, r, sm_mhz,
@@ -1360,7 +1390,7 @@ def work_add(args, out=None):
 def work_topsort(args, out=None):
     """B7: longest-path levels in one pass in topological order (each node
     once, each filled pred slot once), then each node placed once."""
-    level, npred, pred, nc = args
+    level, npred, pred, nc = args[:4]
     act_n, slot = live_slots(nc, npred, pred)
     nodes, edges = int(act_n.sum()), int(slot.sum())
     W, N = npred.shape
@@ -1545,7 +1575,78 @@ def phase_poa_kernels() -> int:
         check(err_w == 0, "the one-kernel-per-window POA disagrees with its "
               "plain version")
         errs[banded] = max(probed["err"], err_w)
-    return max(max(errs.values()), phase_add_edges())
+    return max(max(errs.values()), phase_add_edges(), phase_topsort_edges())
+
+
+def phase_topsort_edges() -> int:
+    """Phase 10, B7's edges: every topsort launch of a lockstep run at a
+    small deep-like shape (16 pred slots, banded) replayed with its hint,
+    with a hint wrong on purpose (nc_pre 0: every node new; nc_pre =
+    node_count: every node old) and on a window given a cycle, each in
+    each plan of ops.poa_topsort.topsort_plan (4, 2 and 1 windows a block,
+    the tables in device scratch) against the plain version.  -> the
+    largest difference."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             PoaScores)
+    from claragenomicsanalysis_tpu_torch.ops import (_build, poa_topsort,
+                                                     poa_window)
+    bs = BatchSize(max_sequence_size=64, max_sequences_per_poa=10,
+                   max_pred_per_node=16, max_aligned_per_node=8,
+                   band_width=24)
+    S, L, N = bs.max_sequences_per_poa, bs.padded_seq, bs.padded_nodes
+    _, _, arrays = poa_window_arrays(48, 56, S, 5, L, SEED + 70)
+    calls, orig = [], poa_window.topsort
+
+    def spy(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return orig(*args)
+
+    poa_window.topsort = spy
+    try:
+        poa_window.run_windows(bs, PoaScores(), True,
+                               *(torch.as_tensor(a).cuda() for a in arrays))
+    finally:
+        poa_window.topsort = orig
+    cases = []
+    for level, npred, pred, nc, nc_pre in calls:
+        cases += [("hint", (level, npred, pred, nc, nc_pre)),
+                  ("nc_pre 0", (level, npred, pred, nc, torch.zeros_like(nc))),
+                  ("nc_pre nc", (level, npred, pred, nc, nc))]
+    level, npred, pred, nc, nc_pre = calls[-1]
+    cyc_pred, cyc_npred = pred.clone(), npred.clone()
+    a, b = 5, 9                  # window 0: b's pred a, a's pred b
+    cyc_pred[0, a, 0], cyc_pred[0, b, 0] = b, a
+    cyc_npred[0, [a, b]] = cyc_npred[0, [a, b]].clamp(min=1)
+    cases.append(("cycle", (level, cyc_npred, cyc_pred, nc, nc_pre)))
+    per = poa_topsort.topsort_table_bytes(N)
+    err, cyclic_ok = 0, None
+    wants = [poa_topsort.topsort_torch(*args) for _, args in cases]
+    for limit, want_plan in ((None, ("warp-shared", 4)),
+                             (2 * per, ("warp-shared", 2)),
+                             (per, ("warp-shared", 1)),
+                             (per - 1, ("warp-device", 4))):
+        with smem_forced(limit):
+            plan = poa_topsort.topsort_plan(N)
+            check(plan == want_plan, f"B7 edges: plan {plan} at "
+                  f"SMEM_PER_BLOCK {limit}")
+            for (name, args), want in zip(cases, wants):
+                got = poa_topsort.topsort(*args)
+                torch.cuda.synchronize()
+                err = max(err, maxdiff(got, want))
+                if name == "cycle":
+                    cyclic_ok = bool(got[3][0])
+        print(f"phase 10 poa_topsort edges (N={N} P={bs.max_pred_per_node}, "
+              f"{len(calls)} lockstep launches x the hint, nc_pre 0 and "
+              f"nc_pre = node_count, and a window with a cycle), plan "
+              f"{plan}: max diff {err} vs the plain version; the cyclic "
+              f"window's ok {cyclic_ok}")
+        check(err == 0, f"B7 disagrees with its plain version ({plan})")
+        check(cyclic_ok is False, "B7: a cyclic window must not be ok")
+    check(np.unique([c[1][3].sum().item() for c in cases]).size > 1,
+          "B7 edges: the lockstep run added no node")
+    return err
 
 
 #: B6 edge batches of phase 10: (A, P, sequences a window, max nodes or None
@@ -1719,7 +1820,7 @@ def phase_c8_poa(sm_mhz: float) -> dict:
         bs = BatchSize(max_sequence_size=blen, max_sequences_per_poa=3)
         N, L, P = bs.padded_nodes, bs.padded_seq, bs.max_pred_per_node
         MC = bs.max_consensus_size
-        plan = {"poa_topsort": poa_topsort.topsort_variant(N, P),
+        plan = {"poa_topsort": poa_topsort.topsort_plan(N),
                 "poa_nwtb": poa_nwtb.nwtb_plan(2, N, P, L, 0),
                 "poa_consensus": poa_consensus.consensus_variant(N, P, MC)}
         _, _, arrays = poa_window_arrays(2, blen - 8, 3, blen // 40, L,
@@ -1908,7 +2009,7 @@ def poa_plan(k: str, args) -> str:
     from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_nwtb,
                                                      poa_topsort)
     if k == "poa_topsort":
-        return poa_topsort.topsort_variant(*args[2].shape[1:])
+        return "/".join(map(str, poa_topsort.topsort_plan(args[2].shape[1])))
     if k == "poa_nwtb":
         seq, pred, sc, bw = args[0], args[6], args[10], args[11]
         W, L = seq.shape
@@ -2428,6 +2529,17 @@ def main() -> int:
 #     the stamped kernel's time, each part's cycles a window and share, and
 #     the cycles a consumed base.
 #
+#   python3 chip_smoke.py --topsort-split
+#     Where B7's time goes: csrc/poa_topsort.cu built with CGA_TOPSORT_SPLIT
+#     (lane 0 of each window records the sweeps run, ordered with their
+#     confirming sweeps and Jacobi, and the SM cycles of the visit order, the
+#     sweeps and the rank) into build/topsort_split/, run at B7's last
+#     lockstep launch of the first launch of windows of the correction, deep
+#     and MSA shapes; outputs checked equal to the kernel's.  Per shape it
+#     prints the kernel's and the stamped kernel's time, the active nodes
+#     and sweeps a window, each part's cycles a window and share, the cycles
+#     a sweep and the rank's cycles an active node.
+#
 #   python3 chip_smoke.py --turns PARENT_DIR
 #     B1 (nw_diag), B2 (tb_decode, both layouts), B3 (nw_row), B4 (myers),
 #     B5 (poa_nwtb), B6 (poa_add), B7 (poa_topsort), B8 (poa_consensus) and
@@ -2769,6 +2881,14 @@ def last_add_args(cfg: dict, n: int, blen: int, edits: int, banded: bool,
     """The inputs of B6's last launch of a lockstep run of the first
     launch of windows of a main path's shape (this script's data and seed,
     as phases 12-14 make it)."""
+    return last_lockstep_args("add_alignment", cfg, n, blen, edits, banded,
+                              msa)
+
+
+def last_lockstep_args(name: str, cfg: dict, n: int, blen: int, edits: int,
+                       banded: bool, msa: bool) -> tuple:
+    """The inputs of the last call of ``ops.poa_window.<name>`` in a
+    lockstep run of the first launch of windows of a main path's shape."""
     import torch
     from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
                                                              PoaScores)
@@ -2778,19 +2898,19 @@ def last_add_args(cfg: dict, n: int, blen: int, edits: int, banded: bool,
     S, L = bs.max_sequences_per_poa, bs.padded_seq
     W = len(poa.launch_chunks(n, bs, msa)[0])
     _, _, arrays = poa_window_arrays(n, blen, S, edits, L, SEED + 20 + S + msa)
-    calls, orig = [], poa_window.add_alignment
+    calls, orig = [], getattr(poa_window, name)
 
     def spy(*args):
         calls.append(args)
         return orig(*args)
 
-    poa_window.add_alignment = spy
+    setattr(poa_window, name, spy)
     try:
         poa_window.run_windows(bs, PoaScores(), banded,
                                *(torch.as_tensor(a[:W]).cuda()
                                  for a in arrays), msa)
     finally:
-        poa_window.add_alignment = orig
+        setattr(poa_window, name, orig)
     return calls[-1]
 
 
@@ -2853,15 +2973,135 @@ def add_split_main() -> int:
     return 0
 
 
+TOPSORT_SPLIT_PARTS = ("visit order", "sweeps", "rank")
+
+
+def topsort_split_build() -> ctypes.CDLL:
+    """csrc/poa_topsort.cu built with CGA_TOPSORT_SPLIT into
+    build/topsort_split/: the same launcher, which also writes each
+    window's record."""
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    out = os.path.join(ROOT, "build", "topsort_split")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "libtopsort_split.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                    "-DCGA_TOPSORT_SPLIT", "-I", str(_build.CSRC), "-shared",
+                    "-o", so, str(_build.CSRC / "poa_topsort.cu")],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    lib.cga_poa_topsort.argtypes = list(
+        _build.SIGNATURES["cga_poa_topsort"])
+    lib.cga_poa_topsort.restype = ctypes.c_int
+    lib.cga_poa_topsort_split_set.argtypes = [ctypes.c_void_p]
+    lib.cga_poa_topsort_split_set.restype = ctypes.c_int
+    lib.cga_error_string = _build.load().cga_error_string
+    return lib
+
+
+def topsort_launch_ms(lib, args: tuple, reps: int = 20) -> float:
+    """Mean milliseconds of B7's launcher alone on ``args`` (outputs
+    allocated once, ``reps`` launches back to back between two events), so
+    that the wrapper's host time does not hide a short kernel."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import poa_topsort
+    level, npred, pred, nc, nc_pre = (a.contiguous() for a in args)
+    W, N, P = pred.shape
+    variant, windows = poa_topsort.topsort_plan(N)
+    outs = [torch.empty_like(level) for _ in range(3)] + [
+        torch.empty(W, dtype=torch.int32, device="cuda")]
+    scratch = torch.empty(W * poa_topsort.topsort_table_bytes(N) // 4
+                          if variant == "warp-device" else 1,
+                          dtype=torch.int32, device="cuda")
+
+    def launch():
+        turns_checked("poa_topsort", lib.cga_poa_topsort(
+            *turns_ptrs(level, npred, pred, nc, nc_pre, *outs),
+            scratch.data_ptr() if variant == "warp-device" else None, W, N,
+            P, windows, turns_stream()))
+
+    launch()
+    return cuda_ms(launch, reps)[0]
+
+
+def topsort_split_measure(lib, tag: str, args: tuple,
+                          sm_mhz: float) -> None:
+    """B7's split at one launch: the kernel's time (the wrapper's, and the
+    launcher's alone) beside the stamped kernel's; per window the sweeps
+    run (ordered, confirming and Jacobi), the cycles of the visit order,
+    the sweeps and the rank and their shares; outputs checked equal to the
+    kernel's."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import _build, poa_topsort
+    W, N, P = args[2].shape
+    ms_k, want = cuda_ms(lambda: poa_topsort.topsort(*args), 5)
+    ms_alone = topsort_launch_ms(_build.load(), args)
+    split = torch.zeros((W, 8), dtype=torch.int64, device="cuda")
+    if lib.cga_poa_topsort_split_set(split.data_ptr()):
+        raise RuntimeError("cga_poa_topsort_split_set failed")
+    real = _build.load
+    _build.load = lambda: lib
+    try:
+        got = poa_topsort.topsort(*args)
+        torch.cuda.synchronize()
+        c = split.cpu().numpy().astype(np.float64)
+        ms, _ = cuda_ms(lambda: poa_topsort.topsort(*args), 3)
+    finally:
+        _build.load = real
+    check(maxdiff(got, want) == 0, f"{tag}: the split build of B7 disagrees "
+          f"with the kernel")
+    parts = c[:, 1:4]
+    tot = parts.sum()
+    sweeps, jacobi, nodes, ordered = c[:, 0], c[:, 4], c[:, 5], c[:, 6]
+    print(f"{tag}: B7 at W={W} N={N} P={P}: kernel {ms_k:.3f} ms through "
+          f"its wrapper, {ms_alone:.4f} ms launched alone (= "
+          f"{ms_alone * 1e3 * sm_mhz:.0f} SM cycles), stamped {ms:.3f} ms; "
+          f"the longest window {parts.sum(1).max():.0f} cycles; a "
+          f"window has {nodes.mean():.1f} active nodes (max "
+          f"{int(nodes.max())}) and runs {sweeps.mean():.2f} sweeps (max "
+          f"{int(sweeps.max())}; ordered {ordered.mean():.2f}, Jacobi "
+          f"{jacobi.mean():.2f}, {int((jacobi > 0).sum())} windows with "
+          f"Jacobi sweeps); cycles a window {parts.sum(1).mean():.0f}: "
+          + ", ".join(f"{k} {v:.0f} ({s_ / max(tot, 1):.3f})" for k, v, s_
+                      in zip(TOPSORT_SPLIT_PARTS, parts.mean(0),
+                             parts.sum(0)))
+          + f"; {parts[:, 1].sum() / max(sweeps.sum(), 1):.0f} cycles a "
+          f"sweep, {parts[:, 2].sum() / max(nodes.sum(), 1):.0f} rank "
+          f"cycles an active node")
+
+
+def topsort_split_main() -> int:
+    """``--topsort-split``: topsort_split_measure at B7's last lockstep
+    launch of the first launch of windows of the correction, deep and MSA
+    shapes (this script's data and seed)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.split()[0])
+    lib = topsort_split_build()
+    for tag, cfg, n, blen, edits, banded, msa in POA_SHAPES:
+        topsort_split_measure(lib, tag, last_lockstep_args(
+            "topsort", cfg, n, blen, edits, banded, msa), sm_mhz)
+    return 0
+
+
 TURNS_ROUNDS, TURNS_REPS = 5, 5
-#: the parent's launchers (before B2 took its plan and B6 its plan and the
-#: warp walk)
+#: the parent's launchers (before B3 took its warp plan and B7 its hint
+#: and its plan)
 _TP, _TI = ctypes.c_void_p, ctypes.c_int
 TURNS_PARENT_SIGNATURES = {
     "cga_nw_diag": (_TP,) * 7 + (_TI,) * 9 + (_TP,),
-    "cga_tb_decode_diag": (_TP,) * 5 + (_TI,) * 5 + (_TP,),
+    "cga_tb_decode_diag": (_TP,) * 5 + (_TI,) * 8 + (_TP,),
     "cga_nw_row": (_TP,) * 7 + (_TI,) * 8 + (_TP,),
-    "cga_tb_decode_row": (_TP,) * 5 + (_TI,) * 5 + (_TP,),
+    "cga_tb_decode_row": (_TP,) * 5 + (_TI,) * 8 + (_TP,),
     "cga_myers": (_TP,) * 7 + (_TI,) * 5 + (_TP,),
     "cga_poa_topsort": (_TP,) * 9 + (_TI,) * 3 + (_TP,),
     "cga_poa_nwtb": (_TP,) * 15 + (_TI,) * 13 + (_TP,),
@@ -2936,9 +3176,8 @@ def turns_banded_inputs(B=449, L=10_000, r=72, seed=SEED):
 
 
 def turns_decode_pair(cur, par, tag, tb, qlen, tlen, r, layout):
-    """B2 of both builds on one traceback: this one in its plan, the
-    parent's a thread a problem; outputs into buffers zeroed once (each
-    launch writes the same words)."""
+    """B2 of both builds on one traceback, both in this one's plan; outputs
+    into buffers zeroed once (each launch writes the same words)."""
     import torch
     from claragenomicsanalysis_tpu_torch.ops import tb_decode
     R4, B, W = tb.shape
@@ -2962,8 +3201,8 @@ def turns_decode_pair(cur, par, tag, tb, qlen, tlen, r, layout):
 
     def run_par():
         turns_checked(name, getattr(par, name)(
-            *turns_ptrs(tb, qlen, tlen, *bp), B, R4, W, r, TL,
-            turns_stream()))
+            *turns_ptrs(tb, qlen, tlen, *bp), B, R4, W, r, TL, copy,
+            plan[1], plan[2], turns_stream()))
         return bp
 
     return (f"B2 tb_decode ({layout}) {tag} B={B} R4={R4} W={W} (this: "
@@ -2987,6 +3226,19 @@ def turns_banded_pairs(cur, par):
     def row():
         return nw_row.banded_nw_row(q, qlen, t, tlen, r)
 
+    # the parent's B3 is a block a problem, one band lane a thread at this
+    # radius (its nw_row_plan), on its own launcher's arguments
+    W, R4 = nw_row.band_width_row(r), nw_row.tb_rows(Lq)
+    check(W <= 1024, "the parent's B3 at this radius is one lane a thread")
+    row_out = [torch.empty(B, dtype=torch.int32, device="cuda"),
+               torch.empty((R4, B, W), dtype=torch.int8, device="cuda")]
+
+    def row_par():
+        turns_checked("nw_row", par.cga_nw_row(
+            *turns_ptrs(q, qlen, t, tlen, *row_out), None, B, Lq, Lt, r, W,
+            R4, 1, 1, turns_stream()))
+        return row_out
+
     def bottom():
         return myers.myers_bottom_row(q, qlen, t, tlen)
 
@@ -2994,8 +3246,7 @@ def turns_banded_pairs(cur, par):
                 f"{nw_diag.nw_diag_plan(Lq, Lt, r)})", diag,
                 turns_via(par, diag), None))
     out.append((f"B3 nw_row B={B} Lq={Lq} r={r} (this: "
-                f"{nw_row.nw_row_plan(Lq, Lt, r)})", row, turns_via(par, row),
-                None))
+                f"{nw_row.nw_row_plan(Lq, Lt, r)})", row, row_par, None))
     out.append((f"B4 myers B={B} Lq={Lq} Lt={Lt}", bottom,
                 turns_via(par, bottom), None))
     out.append(turns_decode_pair(cur, par, "ukkonen", diag()[1], qlen, tlen,
@@ -3076,20 +3327,23 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
     finally:
         for k, f in orig.items():
             setattr(poa_window, k, f)
-    level, npred, pred, nc = (x.contiguous() for x in seen["topsort"])
+    level, npred, pred, nc, nc_pre = (x.contiguous()
+                                      for x in seen["topsort"])
     W, N, P = pred.shape
-    assert poa_topsort.topsort_variant(N, P) == "shared"
+    topo_plan = poa_topsort.topsort_plan(N)
+    assert topo_plan[0] == "warp-shared"
     ts = [torch.empty_like(level) for _ in range(3)] + [
         torch.empty(W, dtype=torch.int32, device="cuda")]
     ts2 = [torch.empty_like(x) for x in ts]
 
     def topo_cur():
-        err = cur.cga_poa_topsort(*turns_ptrs(level, npred, pred, nc, *ts),
-                                  None, W, N, P, turns_stream())
+        err = cur.cga_poa_topsort(
+            *turns_ptrs(level, npred, pred, nc, nc_pre, *ts), None, W, N, P,
+            topo_plan[1], turns_stream())
         turns_checked("topsort", err)
         return ts
 
-    def topo_par():
+    def topo_par():  # the parent's: a block a window, no hint
         err = par.cga_poa_topsort(*turns_ptrs(level, npred, pred, nc, *ts2),
                                   None, W, N, P, turns_stream())
         turns_checked("topsort", err)
@@ -3116,7 +3370,8 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
         return co2
 
     shape = f"W={W} N={N} P={P}"
-    out = [(f"B7 poa_topsort {tag} {shape}", topo_cur, topo_par, None),
+    out = [(f"B7 poa_topsort {tag} {shape} (this: {topo_plan})", topo_cur,
+            topo_par, None),
            (f"B8 poa_consensus {tag} {shape} MC={MC}", cons_cur, cons_par,
             None)]
 
@@ -3233,9 +3488,12 @@ if __name__ == "__main__":
         sys.exit(window_split_main())
     if sys.argv[1:] == ["--add-split"]:
         sys.exit(add_split_main())
+    if sys.argv[1:] == ["--topsort-split"]:
+        sys.exit(topsort_split_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--turns":
         sys.exit(kernel_turns_main(sys.argv[2]))
     if len(sys.argv) > 1:
         sys.exit("usage: python3 chip_smoke.py [--nwtb-split | "
-                 "--window-split | --add-split | --turns PARENT_DIR]")
+                 "--window-split | --add-split | --topsort-split | "
+                 "--turns PARENT_DIR]")
     sys.exit(main())

@@ -174,43 +174,6 @@ __global__ void nw_diag_kernel(const int8_t* __restrict__ q,
 
 // ------------------------------------------------------- a warp a problem
 
-// shared memory of a warp's copy of q and t (ops/nw_diag.py
-// nw_diag_stage_bytes): each rounded up to 16 bytes, at least 16; t's copy
-// starts at q's rounded length
-__host__ __device__ __forceinline__ int stage_len(int L) {
-  return L > 16 ? (L + 15) & ~15 : 16;
-}
-
-// a code of q (row i, base i - 1) or t (column j, base j - 1) in flight:
-// loaded at a clamped index, with whether the index lies in the sequence;
-// the two meet only where the code is used, so no load stalls the step it is
-// issued in
-struct Fetch {
-  int raw;
-  bool ok;
-};
-
-template <bool kStaged>
-__device__ __forceinline__ Fetch fetch(const int8_t* s, int pos, int len) {
-  Fetch f;
-  f.ok = pos >= 1 && pos <= len;
-  const int p = max(min(pos - 1, len - 1), 0);
-  if constexpr (kStaged)
-    f.raw = s[p];
-  else
-    f.raw = __ldg(s + p);
-  return f;
-}
-
-// an unknown base (N, code -1) never matches, not even another N: q's
-// unknown codes read -1 and t's -2, so a match is one compare
-__device__ __forceinline__ int q_code(Fetch f) {
-  return f.ok && f.raw >= 0 ? f.raw : -1;
-}
-__device__ __forceinline__ int t_code(Fetch f) {
-  return f.ok && f.raw >= 0 ? f.raw : -2;
-}
-
 // One problem's sweep by one warp, K slots a lane.  Slot k of this lane is
 // u = l K + k: on diagonal d it holds cell (i, j) = (iq0 - k, jt0 + k) with
 // iq0 = (d + r) / 2 - l K and jt0 = d - iq0.
@@ -225,7 +188,7 @@ struct WarpSweep {
   int iq0, jt0;
   int p1[K], p2[K];   // diagonals d - 1 and d - 2
   int qv[K], tv[K];   // the codes of the slots' cells on diagonal d
-  Fetch nq, nt;       // the next code to enter each
+  cga::Fetch nq, nt;       // the next code to enter each
   typename cga::LaneBytes<K>::T acc;
   int dstar, ustar, score;
 
@@ -236,11 +199,11 @@ struct WarpSweep {
     for (int k = 0; k < K; ++k) {
       p1[k] = cga::kInf;
       p2[k] = cga::kInf;
-      qv[k] = q_code(fetch<kStaged>(qs, iq0 - k, Lq));
-      tv[k] = t_code(fetch<kStaged>(ts, jt0 + k, Lt));
+      qv[k] = cga::q_code(cga::fetch<kStaged>(qs, iq0 - k, Lq));
+      tv[k] = cga::t_code(cga::fetch<kStaged>(ts, jt0 + k, Lt));
     }
-    nq = fetch<kStaged>(qs, iq0 + 1, Lq);
-    nt = fetch<kStaged>(ts, jt0 + K, Lt);
+    nq = cga::fetch<kStaged>(qs, iq0 + 1, Lq);
+    nt = cga::fetch<kStaged>(ts, jt0 + K, Lt);
     acc = 0;
   }
 
@@ -304,14 +267,14 @@ struct WarpSweep {
       ++jt0;
 #pragma unroll
       for (int k = 0; k + 1 < K; ++k) tv[k] = tv[k + 1];
-      tv[K - 1] = t_code(nt);
-      nt = fetch<kStaged>(ts, jt0 + K, Lt);
+      tv[K - 1] = cga::t_code(nt);
+      nt = cga::fetch<kStaged>(ts, jt0 + K, Lt);
     } else {
       ++iq0;
 #pragma unroll
       for (int k = K - 1; k > 0; --k) qv[k] = qv[k - 1];
-      qv[0] = q_code(nq);
-      nq = fetch<kStaged>(qs, iq0 + 1, Lq);
+      qv[0] = cga::q_code(nq);
+      nq = cga::fetch<kStaged>(qs, iq0 + 1, Lq);
     }
   }
 
@@ -353,7 +316,7 @@ __global__ void nw_diag_warp_kernel(const int8_t* __restrict__ q,
   s.ts = t + (size_t)b * Lt;
   if constexpr (kStaged) {
     int8_t* qsh = reinterpret_cast<int8_t*>(smem + (size_t)slot * stage);
-    int8_t* tsh = qsh + stage_len(Lq);
+    int8_t* tsh = qsh + cga::stage_len(Lq);
     for (int p = lane; p < Lq; p += 32) qsh[p] = s.qs[p];
     for (int p = lane; p < Lt; p += 32) tsh[p] = s.ts[p];
     __syncwarp();
@@ -395,7 +358,7 @@ int launch_warp(const void* q, const void* qlen, const void* t,
                 const void* tlen, void* scores, void* tb, int B, int Lq,
                 int Lt, int r, int W, int Dpad, int problems, bool staged,
                 cudaStream_t stream) {
-  const int stage = staged ? stage_len(Lq) + stage_len(Lt) : 0;
+  const int stage = staged ? cga::stage_len(Lq) + cga::stage_len(Lt) : 0;
   const long long smem = (long long)problems * stage;
   auto kernel = staged ? nw_diag_warp_kernel<K, true>
                        : nw_diag_warp_kernel<K, false>;

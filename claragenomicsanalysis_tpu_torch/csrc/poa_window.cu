@@ -39,8 +39,11 @@
 //   during the window's life.  Shared memory holds only the graph NW's ring
 //   of recent rows, two rows' facts, the sequence and four words of state:
 //   a few KB a window, so 20 windows share an SM (a warp plan's registers
-//   allow five blocks of four).  Topsort's two level buffers borrow the
-//   ring, which is dead between the NWs, where it holds 2N ints.
+//   allow five blocks of four).
+// - The topsort is the lockstep route's (poa_topsort.cuh topsort_warp): a
+//   visit-order relaxation and a counting-sort rank on the group's first
+//   warp, its tables in the window's phase tables, the hint the node count
+//   before the last add.
 // - The graph NW is B5's redesigned body (poa_nwtb.cuh): rows a warp or a
 //   block wide, the move in a packed plane word (4 or 8 bytes, Word), a
 //   one-load walk.  It reads the graph with plain loads, since this kernel
@@ -106,10 +109,23 @@ struct Split {
 #define SPLIT_MARK(i) ((void)0)
 #endif
 
+// the topsort of a window (poa_topsort.cuh), a call of its own: inlined,
+// its tables' bookkeeping would add to the registers of the whole window
+// loop, which __launch_bounds__ caps
+__device__ __noinline__ int window_topsort(const int32_t* npred,
+                                           const int32_t* pred, int nc,
+                                           int nc_pre, int N, int P,
+                                           int32_t* tables, int32_t* level,
+                                           int32_t* order, int32_t* rank,
+                                           int lane) {
+  return topsort_warp(level, npred, pred, nc, nc_pre, N, P, tables, level,
+                      order, rank, lane);
+}
+
 // ints of a window's slice of the device scratch: the graph (5 node fields,
 // level, order, rank, pred and predw, alig), the path pn and pp (N + L
 // each), then the phases' tables, sized for the largest (the consensus's;
-// topsort's two level buffers and the MSA's columns are smaller)
+// topsort's 5N + 2 and the MSA's columns are smaller)
 __host__ long long window_slice_ints(int N, int P, int A, int L, int MC) {
   return (long long)N * (8 + 2 * P + A) + 2LL * (N + L) +
          consensus_scratch_ints(N, P, MC);
@@ -203,22 +219,19 @@ __device__ __forceinline__ void window_body(WINDOW_PARAMS) {
   group_sync<kWarp>();
   SPLIT_MARK(0);
 
-  // topsort's two level buffers: in the graph NW's ring where it holds
-  // them (the ring is dead outside the NW), else in the device tables
-  int32_t* la = (long long)d.R * d.RW * sizeof(Word) >= 8LL * N
-                    ? reinterpret_cast<int32_t*>(ring)
-                    : tables;
-  int32_t* lb = la + N;
+  // topsort runs on the group's first warp, its tables in the device
+  // tables (dead between the phases that use them); nc_pre: the node count
+  // the levels were computed for
+  int nc_pre = state[kNc];
   int added = 0;
   for (int s = 1; s < S; ++s) {
     if (s >= ns || state[kSt] != 0) break;  // the same for the whole group
     const int nc = state[kNc];
-    for (int u = gt; u < N; u += gn) la[u] = u < nc ? max(level[u], 0) : 0;
-    group_sync<kWarp>();
-    int changed;
-    const int32_t* lv =
-        topsort_levels<kWarp>(la, lb, npred, pred, nc, N, P, &changed, gt, gn);
-    topsort_place(lv, nc, N, level, order, rank, gt, gn);
+    int changed = 0;
+    if (gt < 32)
+      changed = !window_topsort(npred, pred, nc, nc_pre, N, P, tables, level,
+                                order, rank, gt);
+    nc_pre = nc;
     for (int i = gt; i < L; i += gn) sq[i] = (int8_t)SQ[(size_t)s * L + i];
     group_sync<kWarp>();
     SPLIT_MARK(1);
@@ -284,12 +297,9 @@ __device__ __forceinline__ void window_body(WINDOW_PARAMS) {
 
   // the final order, the consensus and the MSA
   const int nc = state[kNc];
-  for (int u = gt; u < N; u += gn) la[u] = u < nc ? max(level[u], 0) : 0;
-  group_sync<kWarp>();
-  int changed;
-  const int32_t* lv =
-      topsort_levels<kWarp>(la, lb, npred, pred, nc, N, P, &changed, gt, gn);
-  topsort_place(lv, nc, N, level, order, rank, gt, gn);
+  if (gt < 32)
+    window_topsort(npred, pred, nc, nc_pre, N, P, tables, level, order, rank,
+                   gt);
   group_sync<kWarp>();
   SPLIT_MARK(6);
   consensus_group<kWarp>(npred, pred, predw, base, cov, rank, nc,

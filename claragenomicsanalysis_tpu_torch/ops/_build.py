@@ -38,10 +38,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "cga_nw_diag": (_PTR,) * 7 + (_INT,) * 9 + (_PTR,),
     "cga_tb_decode_diag": (_PTR,) * 5 + (_INT,) * 8 + (_PTR,),
-    "cga_nw_row": (_PTR,) * 7 + (_INT,) * 8 + (_PTR,),
+    "cga_nw_row": (_PTR,) * 7 + (_INT,) * 10 + (_PTR,),
     "cga_tb_decode_row": (_PTR,) * 5 + (_INT,) * 8 + (_PTR,),
     "cga_myers": (_PTR,) * 7 + (_INT,) * 5 + (_PTR,),
-    "cga_poa_topsort": (_PTR,) * 9 + (_INT,) * 3 + (_PTR,),
+    "cga_poa_topsort": (_PTR,) * 10 + (_INT,) * 4 + (_PTR,),
     "cga_poa_nwtb": (_PTR,) * 15 + (_INT,) * 13 + (_PTR,),
     "cga_poa_add": (_PTR,) * 17 + (_INT,) * 8 + (_PTR,),
     "cga_poa_consensus": (_PTR,) * 11 + (_INT,) * 4 + (_PTR,),

@@ -20,12 +20,16 @@ traceback decodes with either package's decoder.  The DP is int32 with
 - :func:`banded_nw_row_torch` is the plain PyTorch version, vectorised over
   the batch and the band with a Python loop over rows.
 
-The kernel has two variants of one body, chosen by :func:`nw_row_plan`: a
-block keeps its problem's row, query and target in shared memory where
-:func:`nw_row_smem_bytes` fits a block (``_build.SMEM_PER_BLOCK``), and
-otherwise keeps the row in a device scratch buffer (``4 (W + 1)`` bytes a
-problem) and reads the bases through L1.  A thread owns ``cpt x groups``
-contiguous lanes, so no band width is refused.
+The kernel's plan comes from :func:`nw_row_plan`: a warp a problem where
+the row has at most 256 band lanes (K = 1 to 8 lanes a thread in
+registers, several problems a block, q and t in shared memory where
+:func:`..nw_diag.nw_diag_stage_bytes` of them fit a block, else read
+through L1); for wider bands a block a problem, which keeps its row, query
+and target in shared memory where :func:`nw_row_smem_bytes` fits a block
+(``_build.SMEM_PER_BLOCK``), and otherwise keeps the row in a device
+scratch buffer (``4 (W + 1)`` bytes a problem) and reads the bases through
+L1; a thread of it owns ``cpt x groups`` contiguous lanes, so no band width
+is refused.
 
 A problem's rows end at ``round_up(qlen, 4)``; the traceback rows past that
 are zero.  Where ``|qlen - tlen| > r`` the score is INF and the problem's
@@ -38,7 +42,8 @@ from ..core.status import AlignmentState
 from ..utils.mathutils import round_up
 from ..utils.profiling import kernel_span
 from . import _build
-from .nw_diag import INF, _check
+from .nw_diag import (INF, WARP_PROBLEMS, WARP_SLOTS, _check,
+                      nw_diag_stage_bytes)
 
 
 def band_width_row(band_radius: int) -> int:
@@ -64,15 +69,29 @@ def nw_row_smem_bytes(Lq: int, Lt: int, band_radius: int) -> int:
 
 
 def nw_row_plan(Lq: int, Lt: int, band_radius: int) -> tuple:
-    """-> (variant, cpt, groups, threads) of a (Lq, Lt) batch at radius r.
+    """-> (variant, lanes a thread, problems or lane groups, threads) of a
+    (Lq, Lt) batch at radius r.
 
-    ``"shared"`` where :func:`nw_row_smem_bytes` fits a block and W is at
-    most MAX_CPT x MAX_THREADS (the shared variant keeps a lane's codes in
-    registers, one lane group), else ``"device"``.  A thread owns ``cpt x
-    groups`` contiguous lanes: cpt is the least power of two up to MAX_CPT
-    that covers W with MAX_THREADS threads; the device variant adds lane
-    groups of MAX_CPT past that."""
+    Where W = :func:`band_width_row` is at most 32 x 8: a warp a problem, K
+    the fewest band lanes a thread that cover W (``ceil(W / 32)``, 1 to 8),
+    ``problems`` a block; ``"warp-shared"`` with the most problems (4, 2 or
+    1) whose copies of q and t (:func:`..nw_diag.nw_diag_stage_bytes`) fit
+    a block, else ``"warp-device"`` (4 a block, q and t read through L1).
+    Wider bands: a block a problem, ``"block-shared"`` where
+    :func:`nw_row_smem_bytes` fits a block and W is at most MAX_CPT x
+    MAX_THREADS (the shared variant keeps a lane's codes in registers, one
+    lane group), else ``"block-device"``; a thread owns ``cpt x groups``
+    contiguous lanes: cpt is the least power of two up to MAX_CPT that
+    covers W with MAX_THREADS threads; the device variant adds lane groups
+    of MAX_CPT past that."""
     W = band_width_row(band_radius)
+    if W <= 32 * WARP_SLOTS:
+        K = -(-W // 32)
+        stage = nw_diag_stage_bytes(Lq, Lt)
+        for n in (WARP_PROBLEMS, 2, 1):
+            if n * stage <= _build.SMEM_PER_BLOCK:
+                return "warp-shared", K, n, 32 * n
+        return "warp-device", K, WARP_PROBLEMS, 32 * WARP_PROBLEMS
     shared = (nw_row_smem_bytes(Lq, Lt, band_radius) <= _build.SMEM_PER_BLOCK
               and W <= MAX_CPT * MAX_THREADS)
     cpt = 1
@@ -80,13 +99,14 @@ def nw_row_plan(Lq: int, Lt: int, band_radius: int) -> tuple:
         cpt *= 2
     groups = -(-W // (cpt * MAX_THREADS))
     threads = round_up(-(-W // (cpt * groups)), 32)
-    return ("shared" if shared else "device"), cpt, groups, threads
+    return ("block-shared" if shared else "block-device"), cpt, groups, \
+        threads
 
 
 def nw_row_scratch_bytes(Lq: int, Lt: int, band_radius: int) -> int:
     """Device scratch one problem takes: its row, 4 (W + 1) bytes, for the
-    device variant; 0 for the shared one."""
-    if nw_row_plan(Lq, Lt, band_radius)[0] == "shared":
+    block-device plan; 0 for the others."""
+    if nw_row_plan(Lq, Lt, band_radius)[0] != "block-device":
         return 0
     return 4 * (band_width_row(band_radius) + 1)
 
@@ -185,7 +205,8 @@ def banded_nw_row(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
     tb = torch.empty((R4, B, W), dtype=torch.int8, device=q.device)
     if B == 0:
         return scores, tb
-    variant, cpt, groups, _ = nw_row_plan(Lq, Lt, band_radius)
+    variant, lanes, n, _ = nw_row_plan(Lq, Lt, band_radius)
+    warp = variant.startswith("warp")
     per = nw_row_scratch_bytes(Lq, Lt, band_radius)
     scratch = torch.empty(B * per // 4, dtype=torch.int32, device=q.device)
     lib = _build.load()
@@ -194,8 +215,9 @@ def banded_nw_row(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
         err = lib.cga_nw_row(
             q.data_ptr(), qlen.data_ptr(), t.data_ptr(), tlen.data_ptr(),
             scores.data_ptr(), tb.data_ptr(),
-            scratch.data_ptr() if variant == "device" else None, B, Lq, Lt,
-            band_radius, W, R4, cpt, groups,
+            scratch.data_ptr() if variant == "block-device" else None, B,
+            Lq, Lt, band_radius, W, R4, lanes if warp else 0,
+            0 if warp else lanes, n, int(variant.endswith("shared")),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "nw_row")
     banded_nw_row.launches += 1

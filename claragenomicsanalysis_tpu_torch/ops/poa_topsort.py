@@ -13,9 +13,14 @@ nothing.  Then ``order`` is the stable sort of the nodes by
 - :func:`topsort` is the entry point: it launches ``csrc/poa_topsort.cu``
   for CUDA tensors (counted in ``topsort.launches``, timed inside a
   ``utils.profiling.kernel_times()`` block) and runs the plain version for
-  CPU tensors.
+  CPU tensors.  The kernel reaches the same levels by relaxing each
+  window's nodes in a visit order built from the carried levels and
+  ``nc_pre`` (the node count those levels were computed for), confirms the
+  fixpoint, and runs the Jacobi sweeps only where that fails; it ranks by a
+  counting sort.  ``nc_pre`` changes no output.
 - :func:`topsort_torch` is the plain PyTorch version, vectorised over
   windows with a Python loop over sweeps.
+- :func:`topsort_plan` chooses where the kernel keeps a window's tables.
 """
 
 import torch
@@ -25,37 +30,53 @@ from . import _build
 from .poa_state import padget_cols
 
 
-def topsort_smem_bytes(N: int, P: int) -> int:
-    """Shared memory a block of the kernel's shared variant takes: two level
-    buffers, the in-degrees and the pred lists, ``4 N (3 + P)`` bytes.  Past
-    ``_build.SMEM_PER_BLOCK`` the device variant runs, with the two level
-    buffers (8N bytes a window) in device scratch."""
-    return 4 * N * (3 + P)
+#: windows a block of the kernel (one a warp) where the tables fit
+TOPSORT_WINDOWS = 4
 
 
-def topsort_variant(N: int, P: int) -> str:
-    """``"shared"`` where :func:`topsort_smem_bytes` fits a block, else
-    ``"device"``."""
-    fits = topsort_smem_bytes(N, P) <= _build.SMEM_PER_BLOCK
-    return "shared" if fits else "device"
+def topsort_table_bytes(N: int) -> int:
+    """The tables the kernel keeps a window (``csrc/poa_topsort.cuh``
+    topsort_table_ints): levels, a second level buffer, the visit positions
+    and the visit order (N int32 each) and a histogram of N + 2 bins."""
+    return 4 * (5 * N + 2)
 
 
-def _check(level, npred, pred, node_count):
+def topsort_plan(N: int) -> tuple:
+    """-> (variant, windows a block) of a launch at N nodes a window: a warp
+    a window, ``"warp-shared"`` with the most windows (TOPSORT_WINDOWS, 2 or
+    1) whose :func:`topsort_table_bytes` fit a block
+    (``_build.SMEM_PER_BLOCK``), else ``"warp-device"`` (TOPSORT_WINDOWS a
+    block, the tables in a device scratch slice a window).  No table
+    depends on the pred slots: the pred lists are read where they lie."""
+    per = topsort_table_bytes(N)
+    for n in (TOPSORT_WINDOWS, 2, 1):
+        if n * per <= _build.SMEM_PER_BLOCK:
+            return "warp-shared", n
+    return "warp-device", TOPSORT_WINDOWS
+
+
+def _check(level, npred, pred, node_count, nc_pre=None):
     W, N = level.shape
     if pred.dim() != 3 or pred.shape[:2] != (W, N) or npred.shape != (W, N) \
             or node_count.shape != (W,):
         raise ValueError("want level, npred (W, N), pred (W, N, P), "
                          "node_count (W,)")
-    if any(t.dtype != torch.int32 for t in (level, npred, pred, node_count)):
+    if nc_pre is not None and nc_pre.shape != (W,):
+        raise ValueError("want nc_pre (W,)")
+    tensors = [t for t in (level, npred, pred, node_count, nc_pre)
+               if t is not None]
+    if any(t.dtype != torch.int32 for t in tensors):
         raise ValueError("topsort takes int32 tensors")
-    if len({t.device for t in (level, npred, pred, node_count)}) != 1:
+    if len({t.device for t in tensors}) != 1:
         raise ValueError("topsort's tensors must be on one device")
 
 
 def topsort_torch(level: torch.Tensor, npred: torch.Tensor,
-                  pred: torch.Tensor, node_count: torch.Tensor):
-    """Plain PyTorch version of :func:`topsort`: the same outputs."""
-    _check(level, npred, pred, node_count)
+                  pred: torch.Tensor, node_count: torch.Tensor,
+                  nc_pre: torch.Tensor | None = None):
+    """Plain PyTorch version of :func:`topsort`: the same outputs (the
+    Jacobi sweeps need no hint: ``nc_pre`` is only checked)."""
+    _check(level, npred, pred, node_count, nc_pre)
     W, N, P = pred.shape
     dev = level.device
     idx = torch.arange(N, dtype=torch.int32, device=dev).expand(W, N)
@@ -83,24 +104,29 @@ def topsort_torch(level: torch.Tensor, npred: torch.Tensor,
 
 
 def topsort(level: torch.Tensor, npred: torch.Tensor, pred: torch.Tensor,
-            node_count: torch.Tensor):
+            node_count: torch.Tensor, nc_pre: torch.Tensor | None = None):
     """Levels and topological order of every window's graph.
 
     Args:
       level: (W, N) int32 levels of the last topsort (warm start).
       npred: (W, N) int32 in-degrees; pred (W, N, P) int32 pred lists.
       node_count: (W,) int32.
+      nc_pre: (W,) int32, the node count of the graph ``level`` was
+        computed for (the nodes past it are the last add's), or None (every
+        node old).  A hint: no value changes an output.
 
     Returns:
       (level, order, rank) (W, N) int32 and ok (W,) bool.
     """
     if level.device.type == "cpu":
-        return topsort_torch(level, npred, pred, node_count)
-    _check(level, npred, pred, node_count)
+        return topsort_torch(level, npred, pred, node_count, nc_pre)
+    _check(level, npred, pred, node_count, nc_pre)
     if level.device.type != "cuda":
         raise ValueError(f"no kernel for device {level.device}")
     level, npred, pred, node_count = (
         t.contiguous() for t in (level, npred, pred, node_count))
+    if nc_pre is not None:
+        nc_pre = nc_pre.contiguous()
     W, N, P = pred.shape
     out_level = torch.empty_like(level)
     order = torch.empty_like(level)
@@ -108,18 +134,21 @@ def topsort(level: torch.Tensor, npred: torch.Tensor, pred: torch.Tensor,
     ok = torch.empty(W, dtype=torch.int32, device=level.device)
     if W == 0:
         return out_level, order, rank, ok.bool()
-    device = topsort_variant(N, P) == "device"
-    scratch = torch.empty(2 * W * N if device else 0, dtype=torch.int32,
-                          device=level.device)
+    variant, windows = topsort_plan(N)
+    device = variant == "warp-device"
+    scratch = torch.empty(W * topsort_table_bytes(N) // 4 if device else 0,
+                          dtype=torch.int32, device=level.device)
     lib = _build.load()
     with torch.cuda.device(level.device), kernel_span(
-            "poa_topsort", (level, npred, pred, node_count), W * N * P):
+            "poa_topsort", (level, npred, pred, node_count, nc_pre),
+            W * N * P):
         err = lib.cga_poa_topsort(
             level.data_ptr(), npred.data_ptr(), pred.data_ptr(),
-            node_count.data_ptr(), out_level.data_ptr(), order.data_ptr(),
-            rank.data_ptr(), ok.data_ptr(),
-            scratch.data_ptr() if device else None, W, N, P,
-            torch.cuda.current_stream().cuda_stream)
+            node_count.data_ptr(),
+            None if nc_pre is None else nc_pre.data_ptr(),
+            out_level.data_ptr(), order.data_ptr(), rank.data_ptr(),
+            ok.data_ptr(), scratch.data_ptr() if device else None, W, N, P,
+            windows, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_topsort")
     topsort.launches += 1
     return out_level, order, rank, ok.bool()

@@ -73,11 +73,14 @@ def run_windows(bs: BatchSize, sc: PoaScores, banded: bool, seqs, weights,
     bw = bs.band_width if banded else 0
     state = init_state(bs, seqs[:, 0], weights[:, 0], lens[:, 0], msa)
     level = init_level(bs.padded_nodes, lens[:, 0])
+    # the node count of the graph `level` was computed for: topsort's hint
+    level_nc = state.node_count
     for s in range(1, S):
         alive = (s < n_seqs) & (state.status == _OK)
+        nc_at_topsort = state.node_count    # the add returns a new state
         with trace_range("poa.topsort"):
             new_level, order, rank, ok = f_topsort(
-                level, state.npred, state.pred, state.node_count)
+                level, state.npred, state.pred, nc_at_topsort, level_nc)
         with trace_range("poa.nwtb"):
             pn, pp, k0, band_ok = f_nwtb(
                 seqs[:, s], order, rank, state.npred, state.base,
@@ -91,9 +94,10 @@ def run_windows(bs: BatchSize, sc: PoaScores, banded: bool, seqs, weights,
         status = torch.where(alive & ~band_ok, _BAND, status)
         state = new._replace(status=status.to(torch.int32))
         level = torch.where(alive[:, None], new_level, level)
+        level_nc = torch.where(alive, nc_at_topsort, level_nc)
     with trace_range("poa.topsort"):
         _, order, rank, _ = f_topsort(level, state.npred, state.pred,
-                                      state.node_count)
+                                      state.node_count, level_nc)
     with trace_range("poa.consensus"):
         codes, covs, length = f_consensus(
             state.npred, state.pred, state.predw, state.base, state.cov,

@@ -75,7 +75,7 @@ def test_lengths_16385_apart_need_device_memory_in_both_kernels():
     assert nw_diag.nw_diag_plan(1_000, 17_392, r) == ("block-device", 0, 1)
     assert nw_diag.nw_diag_scratch_bytes(1_000, 17_392, r) == 9 * 32_840
     assert nw_row.band_width_row(r) == 65_672
-    assert nw_row.nw_row_plan(8, 8, r) == ("device", 8, 9, 928)
+    assert nw_row.nw_row_plan(8, 8, r) == ("block-device", 8, 9, 928)
     assert nw_row.nw_row_scratch_bytes(8, 8, r) == 4 * 65_673
 
 
@@ -121,22 +121,25 @@ def test_nw_diag_warp_plan_stages_while_q_and_t_fit(lq_lt, plan):
 
 
 @pytest.mark.parametrize("r, plan", [
-    (72, ("shared", 1, 1, 160)),          # the main path's bucket
-    (2_100, ("shared", 8, 1, 544)),       # banded-escalate's wide bands
-    (4_095, ("shared", 8, 1, 1024)),      # W = 8,192: one group of 8 lanes
-    (4_096, ("device", 8, 2, 544)),       # W = 8,200: two groups
-    (29_040, ("device", 8, 8, 928)),      # also past a block's 227 KB
-    (70_000, ("device", 8, 18, 992)),     # 18 lane groups of 8
+    (72, ("warp-shared", 5, 4, 128)),     # the main path's bucket: a warp
+    (2_100, ("block-shared", 8, 1, 544)),  # banded-escalate's wide bands
+    (4_095, ("block-shared", 8, 1, 1024)),  # W = 8,192: one group of 8
+    (4_096, ("block-device", 8, 2, 544)),  # W = 8,200: two groups
+    (29_040, ("block-device", 8, 8, 928)),  # also past a block's 227 KB
+    (70_000, ("block-device", 8, 18, 992)),  # 18 lane groups of 8
 ])
 def test_nw_row_plan(r, plan):
     assert nw_row.nw_row_plan(8, 8, r) == plan
-    variant, cpt, groups, threads = plan
+    variant, lanes, n, threads = plan
     W = nw_row.band_width_row(r)
-    assert (variant == "shared") == (
+    if variant.startswith("warp"):     # K lanes a thread, n problems
+        assert 32 * lanes >= W > 32 * (lanes - 1) and threads == 32 * n
+        return
+    assert (variant == "block-shared") == (
         nw_row.nw_row_smem_bytes(8, 8, r) <= _build.SMEM_PER_BLOCK
         and W <= nw_row.MAX_CPT * nw_row.MAX_THREADS)
-    assert threads <= 1024 and cpt * groups * threads >= W
-    assert cpt * groups * (threads - 32) < W
+    assert threads <= 1024 and lanes * n * threads >= W
+    assert lanes * n * (threads - 32) < W
 
 
 def test_launch_chunks_count_the_device_variants_scratch():
@@ -164,14 +167,16 @@ def test_consensus_switches_near_1800_bases(S, variant):
     assert poa_consensus.consensus_variant(N, P, MC) == variant
 
 
-@pytest.mark.parametrize("S, variant", [(2_048, "shared"),
-                                        (2_768, "device"),
-                                        (9_000, "device")])
-def test_topsort_variant(S, variant):
+@pytest.mark.parametrize("S, plan", [(2_048, ("warp-shared", 1)),
+                                     (2_768, ("warp-shared", 1)),
+                                     (9_000, ("warp-device", 4))])
+def test_topsort_variant(S, plan):
+    """cli poa sizes a batch from its longest sequence S: N = 3S (padded
+    to 8); B7's tables take 4 (5N + 2) bytes a window."""
     bs = BatchSize(max_sequence_size=S, max_sequences_per_poa=3)
-    N, P = bs.padded_nodes, bs.max_pred_per_node
-    assert poa_topsort.topsort_smem_bytes(N, P) == 4 * N * (3 + P)
-    assert poa_topsort.topsort_variant(N, P) == variant
+    N = bs.padded_nodes
+    assert poa_topsort.topsort_table_bytes(N) == 4 * (5 * N + 2)
+    assert poa_topsort.topsort_plan(N) == plan
 
 
 @pytest.mark.parametrize("L, plan", [
