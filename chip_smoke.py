@@ -60,7 +60,11 @@ Phases, one line or more each:
      A = 1, 31, 32 and 63 filled, the edge and node overflows), every
      lockstep launch against the plain versions; then B7's edges: every
      topsort launch of a lockstep run with its hint, with hints wrong on
-     purpose and on a window given a cycle, in each of its plans;
+     purpose and on a window given a cycle, in each of its plans; then B8
+     and B9 in each of their plans (4, 2 or 1 windows a block, B9's
+     columns alone in shared memory, the tables in device scratch) on the
+     consensus and MSA calls of two lockstep runs, B8 also on a window
+     given a cycle and on a rank that is no permutation;
  10b. B5's variants (a warp or a block a window, with the ring, a 2-row
      ring and none; 72 pred slots; 8-byte plane words) against its plain
      version at every lockstep launch;
@@ -101,12 +105,14 @@ Phases, one line or more each:
      base target side), SUCCESS paths at one distance, diag == row,
      ``hirschberg-myers`` equal to the plain versions, each device variant
      against its plain version with times and bounds;
- 18. C8, POA: windows at ``cli poa``'s sizes of 2,048-base sequences (every
-     launch against the plain versions; B8 on device memory, B5 a block a
-     window) and of 9,000-base sequences (B7 and B8 on device memory, B5
-     past L = 8,191), each kernel at its largest launch against its plain
-     version with times and bounds.
-Then a line per redesigned kernel (B1-B7, B10) with its time
+ 18. C8, POA: windows at ``cli poa``'s sizes of 2,048-base sequences with
+     the MSA (every launch against the plain versions; B8 one window a
+     block, B5 a block a window) and of 9,000-base sequences (B7 and B8 on
+     device memory, B5 past L = 8,191), each kernel at its largest launch
+     against its plain version with times and bounds; then C10, B9
+     launched directly at N = 58,120 (cli poa's sizing for 19,371-base
+     sequences, its tables in device memory) against its plain version.
+Then a line per redesigned kernel (B1-B10) with its time
 at each main path's largest launch beside the first design's as PERF.md
 records it (FIRST_DESIGN_MS, not measured by this run) and its bound, and a
 line per variant of phases 2, 3, 6, 15, 17 and 18.  Then one JSON line
@@ -171,7 +177,11 @@ FIRST_DESIGN_MS = {("poa_nwtb", "poa"): 1.368, ("poa_nwtb", "poa_deep"): 2.042,
                    ("nw_row", "ukkonen_row"): 5.232,
                    ("poa_topsort", "poa"): 0.246,
                    ("poa_topsort", "poa_deep"): 0.400,
-                   ("poa_topsort", "poa_msa"): 0.215}
+                   ("poa_topsort", "poa_msa"): 0.215,
+                   ("poa_consensus", "poa"): 0.326,
+                   ("poa_consensus", "poa_deep"): 0.439,
+                   ("poa_consensus", "poa_msa"): 0.305,
+                   ("poa_msa", "poa_msa"): 0.521}
 FIRST_MYERS_MS = {"score pass": 7.023, "Hirschberg level 0": 9.327}
 
 
@@ -1575,7 +1585,8 @@ def phase_poa_kernels() -> int:
         check(err_w == 0, "the one-kernel-per-window POA disagrees with its "
               "plain version")
         errs[banded] = max(probed["err"], err_w)
-    return max(max(errs.values()), phase_add_edges(), phase_topsort_edges())
+    return max(max(errs.values()), phase_add_edges(), phase_topsort_edges(),
+               phase_finish_edges())
 
 
 def phase_topsort_edges() -> int:
@@ -1646,6 +1657,103 @@ def phase_topsort_edges() -> int:
         check(cyclic_ok is False, "B7: a cyclic window must not be ok")
     check(np.unique([c[1][3].sum().item() for c in cases]).size > 1,
           "B7 edges: the lockstep run added no node")
+    return err
+
+
+def finish_calls(bs, banded: bool, arrays) -> tuple:
+    """The consensus and MSA calls of a lockstep run with the MSA on the
+    card: (consensus args, (state, order))."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import PoaScores
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    seen = {}
+    orig = {k: getattr(poa_window, k) for k in ("consensus", "msa_rows")}
+
+    def spy(k):
+        def run(*args):
+            seen[k] = args
+            return orig[k](*args)
+        return run
+
+    for k in orig:
+        setattr(poa_window, k, spy(k))
+    try:
+        poa_window.run_windows(bs, PoaScores(), banded,
+                               *(torch.as_tensor(a).cuda() for a in arrays),
+                               True)
+    finally:
+        for k, f in orig.items():
+            setattr(poa_window, k, f)
+    return seen["consensus"], seen["msa_rows"]
+
+
+def phase_finish_edges() -> int:
+    """Phase 10, B8's and B9's plans: the consensus and MSA calls of two
+    lockstep runs (tight caps, where node, clique and edge overflows hit,
+    and a small deep-like banded run), and the deep-like call with a
+    window given a cycle and with a rank that is no permutation, each in
+    every plan of ops.poa_consensus.consensus_plan (4, 2 and 1 windows a
+    block, the tables in device scratch) and ops.poa_msa.msa_plan (4, 2
+    and 1 windows a block, the columns alone in shared memory, both tables
+    in device scratch) against the plain versions.  -> the largest
+    difference."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import BatchSize
+    from claragenomicsanalysis_tpu_torch.ops import poa_consensus, poa_msa
+    deep = BatchSize(max_sequence_size=64, max_sequences_per_poa=10,
+                     max_pred_per_node=16, max_aligned_per_node=8,
+                     band_width=24)
+    caps = BatchSize(**POA_CAPS)
+    cons, msas = [], []
+    for bs, banded, seed in ((caps, False, SEED + 80), (deep, True,
+                                                        SEED + 81)):
+        _, _, arrays = poa_window_arrays(48, bs.max_sequence_size - 8,
+                                         bs.max_sequences_per_poa, 5,
+                                         bs.padded_seq, seed)
+        c, m = finish_calls(bs, banded, arrays)
+        cons.append(("lockstep", c))
+        msas.append(m)
+    npred, pred, predw, base, cov, rank, nc, MC = cons[-1][1]
+    cyc_pred, cyc_npred = pred.clone(), npred.clone()
+    cyc_pred[0, 5, 0], cyc_pred[0, 9, 0] = 9, 5   # window 0: 5 <-> 9
+    cyc_npred[0, [5, 9]] = cyc_npred[0, [5, 9]].clamp(min=1)
+    cons.append(("cycle", (cyc_npred, cyc_pred, predw, base, cov, rank, nc,
+                           MC)))
+    dup = rank.clone()
+    dup[:, 3] = dup[:, 4]                         # no permutation
+    cons.append(("rank no permutation", (npred, pred, predw, base, cov, dup,
+                                         nc, MC)))
+    err, seen = 0, set()
+    for name, args in cons:
+        W, N, P = args[1].shape
+        want = poa_consensus.consensus_torch(*args)
+        per = poa_consensus.consensus_table_bytes(N, args[7])
+        for limit in (None, 2 * per, per, per - 1):
+            with smem_forced(limit):
+                plan = poa_consensus.consensus_plan(W, N, P, args[7])
+                got = poa_consensus.consensus(*args)
+                torch.cuda.synchronize()
+            err = max(err, maxdiff(got, want))
+            seen.add(("B8", plan))
+    for state, order in msas:
+        W, N, P = state.pred.shape
+        A, (S, L) = state.alig.shape[2], state.paths.shape[1:]
+        want = poa_msa.msa_torch(state, order)
+        per = poa_msa.msa_table_bytes(N, P, A)
+        for limit in (None, 2 * per, per, 4 * N, 4 * N - 4):
+            with smem_forced(limit):
+                plan = poa_msa.msa_plan(W, N, P, A, S, L)
+                got = poa_msa.msa(state, order)
+                torch.cuda.synchronize()
+            err = max(err, maxdiff(got, want))
+            seen.add(("B9", plan))
+    plans = sorted(seen)
+    print(f"phase 10 poa_consensus / poa_msa plans: B8 on the consensus "
+          f"calls of a tight-caps and a deep-like lockstep run, a cyclic "
+          f"window and a rank that is no permutation, B9 on both runs' MSA "
+          f"calls, each in {plans}: max diff {err} vs the plain versions")
+    check(err == 0, "B8 or B9 disagrees with its plain version in a plan")
+    check(len(plans) == 9, f"B8 / B9 plans held: {plans}")
     return err
 
 
@@ -1802,39 +1910,89 @@ def phase_nwtb_variants() -> int:
     return err
 
 
+def c10_msa_state(N: int = 58_120, W: int = 2, S: int = 3, L: int = 64,
+                  nodes: int = 300):
+    """A synthetic final graph of W windows at N nodes a window (P = A =
+    4), ``nodes`` of them active: a backbone chain with aligned pairs every
+    37 nodes, and S paths of L nodes each, on the card -> (state, order).
+    C10's threshold is N, not node_count, so the plain version stays
+    cheap."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops.poa_state import PoaState
+    rng = np.random.default_rng(SEED + 90)
+    P = A = 4
+    i32 = np.int32
+    base = np.full((W, N), -1, i32)
+    npred, nalig = np.zeros((W, N), i32), np.zeros((W, N), i32)
+    pred, alig = np.full((W, N, P), -1, i32), np.full((W, N, A), -1, i32)
+    paths = np.full((W, S, L), -1, i32)
+    base[:, :nodes] = rng.integers(0, 4, (W, nodes))
+    npred[:, 1:nodes] = 1
+    pred[:, 1:nodes, 0] = np.arange(nodes - 1)
+    for w in range(W):
+        for u in range(10 + w, nodes - 2, 37):    # u and u + 1 aligned
+            nalig[w, u] = nalig[w, u + 1] = 1
+            alig[w, u, 0], alig[w, u + 1, 0] = u + 1, u
+            pred[w, u + 1, 0] = u - 1
+        for si in range(S):
+            start = int(rng.integers(0, nodes - L))
+            paths[w, si] = np.arange(start, start + L)
+
+    def t(a):
+        return torch.from_numpy(a).cuda()
+
+    state = PoaState(base=t(base), cov=t(np.ones((W, N), i32)),
+                     npred=t(npred), pred=t(pred),
+                     predw=t(np.ones((W, N, P), i32)),
+                     nsucc=t(np.zeros((W, N), i32)), nalig=t(nalig),
+                     alig=t(alig), node_count=t(np.full(W, nodes, i32)),
+                     status=t(np.zeros(W, i32)), paths=t(paths))
+    return state, t(np.tile(np.arange(N, dtype=i32), (W, 1)))
+
+
 def phase_c8_poa(sm_mhz: float) -> dict:
-    """Phase 18 (C8, POA): windows at ``cli poa``'s sizes (BatchSize from
-    the longest sequence S: N = 3S, P = 4, MC = 2S) through the lockstep
-    route: two windows of three 2,048-base sequences, every launch of every
-    kernel against its plain version (B8 on device memory, B5 a block a
-    window), then two windows of three 9,000-base sequences (B7 and B8 on
-    device memory, B5 past the first design's L = 8,191 with a 4-row ring),
-    each kernel at its largest launch against its plain version; times and
-    bounds at both.  -> kernel name -> a list of variant figures."""
+    """Phase 18 (C8, C10; POA): windows at ``cli poa``'s sizes (BatchSize
+    from the longest sequence S: N = 3S, P = 4, MC = 2S) through the
+    lockstep route: two windows of three 2,048-base sequences with the MSA,
+    every launch of every kernel against its plain version (B8 one window
+    a block, B5 a block a window), then two windows of three 9,000-base
+    sequences (B7 and B8 on device memory, B5 past the first design's L =
+    8,191 with a 4-row ring), each kernel at its largest launch against
+    its plain version; times and bounds at both.  Then C10: B9 launched
+    directly at N = 58,120 (cli poa's sizing for 19,371-base sequences,
+    past what its first design held in shared memory) on a synthetic
+    graph, against its plain version.  -> kernel name -> a list of variant
+    figures."""
+    import torch
     from claragenomicsanalysis_tpu_torch.core.config import BatchSize
-    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus,
+    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_msa,
                                                      poa_nwtb, poa_topsort)
     from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
     variants = {}
     for blen, compare in ((2_048, True), (9_000, False)):
         bs = BatchSize(max_sequence_size=blen, max_sequences_per_poa=3)
         N, L, P = bs.padded_nodes, bs.padded_seq, bs.max_pred_per_node
-        MC = bs.max_consensus_size
+        MC, A = bs.max_consensus_size, bs.max_aligned_per_node
         plan = {"poa_topsort": poa_topsort.topsort_plan(N),
                 "poa_nwtb": poa_nwtb.nwtb_plan(2, N, P, L, 0),
-                "poa_consensus": poa_consensus.consensus_variant(N, P, MC)}
+                "poa_consensus": poa_consensus.consensus_plan(2, N, P, MC)}
+        if compare:
+            plan["poa_msa"] = poa_msa.msa_plan(2, N, P, A, 3, L)
         _, _, arrays = poa_window_arrays(2, blen - 8, 3, blen // 40, L,
                                          SEED + 50 + blen)
         zero_launches()
         t0 = time.perf_counter()
         with kernel_times() as kt:
-            out, probed = run_poa_arrays(bs, False, arrays, compare)
+            out, probed = run_poa_arrays(bs, False, arrays, compare,
+                                         msa=compare)
             launches = read_launches(POA_KERNELS)
             dev_ms = kt.ms()
         status = out[5].tolist()
         print(f"phase 18 C8 poa: 2 windows of 3 x {blen - 8} bases at cli "
-              f"poa's BatchSize (N={N} L={L} P={P} MC={MC}), variants "
-              f"{plan}: {time.perf_counter() - t0:.1f} s, launches "
+              f"poa's BatchSize (N={N} L={L} P={P} MC={MC})"
+              f"{', with the MSA' * compare}, plans {plan}: "
+              f"{time.perf_counter() - t0:.1f} s, launches "
               f"{launches}, statuses {status}, consensus lengths "
               f"{out[2].tolist()}" + (f"; every launch vs its plain version, "
                                       f"max diff {probed['err']}"
@@ -1851,6 +2009,28 @@ def phase_c8_poa(sm_mhz: float) -> dict:
             variants.setdefault(k, []).append(dict(
                 v, variant=f"C8 cli poa, {blen - 8}-base sequences: "
                            f"{plan.get(k, 'as before')}"))
+
+    state, order = c10_msa_state()
+    W, N, P = state.pred.shape
+    plan = poa_msa.msa_plan(W, N, P, 4, *state.paths.shape[1:])
+    ms, got = cuda_ms(lambda: poa_msa.msa(state, order), 5)
+    ms_p, want = cuda_ms(lambda: poa_msa.msa_torch(state, order), 1)
+    err = maxdiff(got, want)
+    ops, nbytes, what = work_msa((state, order), got)
+    b = bound(ops, nbytes, sm_mhz)
+    shape = f"W={W} N={N} P={P} A=4 S=3 L=64, 300 active nodes"
+    print(f"phase 18 C10 poa_msa: launched directly at {shape} (cli poa's "
+          f"N for 19,371-base sequences), plan {plan}: kernel {ms:.3f} ms vs "
+          f"plain {ms_p:.1f} ms, max diff {err}, {int(got[1].min())}-"
+          f"{int(got[1].max())} columns; bound {what}, {ops} int32 ops, "
+          f"{nbytes} B -> {b[0]:.4f} ms ({b[1]})")
+    check(plan == ("warp-device", 4), f"C10: B9's plan {plan} at N={N}")
+    check(err == 0 and int(got[1].min()) > 0,
+          "C10: B9 disagrees with its plain version at N = 58,120")
+    variants.setdefault("poa_msa", []).append(dict(
+        variant=f"C10 direct launch: {'/'.join(map(str, plan))}",
+        shape=shape, ms=ms, plain_ms=ms_p, bound=b, err=err))
+    torch.cuda.synchronize()
     return variants
 
 
@@ -2006,8 +2186,8 @@ def check_graphs(tag: str, bs, banded: bool, windows, arrays, sub) -> None:
 
 def poa_plan(k: str, args) -> str:
     """The plan a launch of POA kernel ``k`` on ``args`` takes."""
-    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_nwtb,
-                                                     poa_topsort)
+    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_msa,
+                                                     poa_nwtb, poa_topsort)
     if k == "poa_topsort":
         return "/".join(map(str, poa_topsort.topsort_plan(args[2].shape[1])))
     if k == "poa_nwtb":
@@ -2017,10 +2197,15 @@ def poa_plan(k: str, args) -> str:
         return "/".join(map(str, poa_nwtb.nwtb_plan(
             W, N, P, L, bw, poa_nwtb.nwtb_word_bytes(N, L, sc))))
     if k == "poa_add":
-        return "a warp a window"    # B6 has one, as B9
+        return "a warp a window"    # B6 has one
     if k == "poa_consensus":
-        return poa_consensus.consensus_variant(*args[1].shape[1:], args[7])
-    return "a block a window"       # B9 has one
+        W, N, P = args[1].shape
+        return "/".join(map(str, poa_consensus.consensus_plan(W, N, P,
+                                                              args[7])))
+    state, order = args
+    W, N, P = state.pred.shape
+    return "/".join(map(str, poa_msa.msa_plan(
+        W, N, P, state.alig.shape[2], *state.paths.shape[1:])))
 
 
 def replay_poa_kernels(tag: str, kt, launches: dict, dev_ms: dict, bs,
@@ -2540,20 +2725,37 @@ def main() -> int:
 #     and sweeps a window, each part's cycles a window and share, the cycles
 #     a sweep and the rank's cycles an active node.
 #
+#   python3 chip_smoke.py --finish-split
+#     Where B8's and B9's time goes: csrc/poa_consensus.cu built with
+#     CGA_CONSENSUS_SPLIT into build/consensus_split/ and csrc/poa_msa.cu
+#     with CGA_MSA_SPLIT into build/msa_split/, one nvcc each, together
+#     (lane 0 of each window records the SM cycles of B8's table pass,
+#     score sweeps, end node, walk back and writes, with its sweeps and
+#     Jacobi sweeps; of B9's gathers, column chain, max and rows, with its
+#     ranks and gathers), run at B8's last lockstep launch of the first
+#     launch of windows of the correction, deep and MSA shapes and B9's at
+#     the MSA shape; outputs checked equal to the kernel's.  Per launch it
+#     prints the kernel's and the stamped kernel's time, each part's cycles
+#     a window and share, and the sweeps or the ranks a window.
+#
 #   python3 chip_smoke.py --turns PARENT_DIR
 #     B1 (nw_diag), B2 (tb_decode, both layouts), B3 (nw_row), B4 (myers),
-#     B5 (poa_nwtb), B6 (poa_add), B7 (poa_topsort), B8 (poa_consensus) and
-#     B10 (poa_window) of this checkout against the same kernels built from
+#     B5 (poa_nwtb), B6 (poa_add), B7 (poa_topsort), B8 (poa_consensus), B9
+#     (poa_msa) and B10 (poa_window) of this checkout against the same
+#     kernels built from
 #     another checkout (the parent commit, unpacked with git archive), on
 #     identical inputs, each in its plan: B1, B3, B4 and B2 (the diag
 #     layout on B1's traceback, the row one on B3's) on 449 pairs of
 #     10,000-base queries at r = 72 (the ukkonen and ukkonen_row paths'
 #     largest launch), B2 also at a myers base case (133,138 pairs of 32 x
 #     32 at r = 32); B7, B5, B6 and B8 at the last launch of a lockstep run
-#     at the correction, deep and MSA shapes (B6 from the same state each
-#     launch, the copy untimed); B10 at the window route's first launch at
-#     those shapes.  Both builds' outputs are checked equal, then each
-#     kernel is timed parent, this, this, parent, TURNS_ROUNDS times,
+#     at the correction, deep and MSA shapes, B9 at the MSA shape's (B6 from
+#     the same state each launch, the copy untimed); B10 at the window
+#     route's first launch at those shapes.  Launchers whose arguments both
+#     builds share run through the port's wrappers (turns_via); B8 and B9
+#     are called at each build's own arguments (TURNS_PARENT_SIGNATURES).
+#     Both builds' outputs are checked equal, then each kernel is timed
+#     parent, this, this, parent, TURNS_ROUNDS times,
 #     TURNS_REPS launches a sample; the medians print with the card's name
 #     and power limit.
 
@@ -3093,22 +3295,158 @@ def topsort_split_main() -> int:
     return 0
 
 
+#: the parts of B8's split build (csrc/poa_consensus.cu built with
+#: CGA_CONSENSUS_SPLIT): each window writes the SM cycles of each into slots
+#: 0-4; slot 5 holds the sweeps run, 6 the Jacobi sweeps among them, 7 the
+#: active nodes
+CONSENSUS_SPLIT_PARTS = ("table pass", "score sweeps", "end node",
+                         "walk back", "writes")
+#: and of B9's (csrc/poa_msa.cu built with CGA_MSA_SPLIT): slots 0-3; slot
+#: 4 holds the ranks walked, 5 the ranks that gave a clique its column, 6
+#: the gathers of rank lists
+MSA_SPLIT_PARTS = ("gather", "column chain", "max", "rows")
+
+
+def finish_split_build() -> dict:
+    """csrc/poa_consensus.cu built with CGA_CONSENSUS_SPLIT into
+    build/consensus_split/ and csrc/poa_msa.cu with CGA_MSA_SPLIT into
+    build/msa_split/, one nvcc each, started together: kernel name -> its
+    library (the same launcher, which also writes each window's record)."""
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    builds = []
+    for name, flag in (("poa_consensus", "-DCGA_CONSENSUS_SPLIT"),
+                       ("poa_msa", "-DCGA_MSA_SPLIT")):
+        out = os.path.join(ROOT, "build", name[4:] + "_split")
+        os.makedirs(out, exist_ok=True)
+        so = os.path.join(out, f"lib{name[4:]}_split.so")
+        builds.append((name, so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, flag, "-I", str(_build.CSRC),
+             "-shared", "-o", so, str(_build.CSRC / f"{name}.cu")])))
+    libs = {}
+    for name, so, proc in builds:
+        check(proc.wait() == 0, f"the split build of {name} failed")
+        lib = ctypes.CDLL(so)
+        launcher = getattr(lib, f"cga_{name}")
+        launcher.argtypes = list(_build.SIGNATURES[f"cga_{name}"])
+        launcher.restype = ctypes.c_int
+        setter = getattr(lib, f"cga_{name}_split_set")
+        setter.argtypes = [ctypes.c_void_p]
+        setter.restype = ctypes.c_int
+        lib.cga_error_string = _build.load().cga_error_string
+        libs[name] = lib
+    return libs
+
+
+def finish_split_measure(lib, k: str, tag: str, args: tuple,
+                         sm_mhz: float) -> None:
+    """B8's (``k`` "poa_consensus") or B9's ("poa_msa") split at one
+    launch: the kernel's time through its wrapper beside the stamped
+    kernel's; per window each part's SM cycles and share, and the sweeps
+    (B8) or the ranks and gathers (B9); outputs checked equal to the
+    kernel's."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import _build, poa_window
+    fn = getattr(poa_window, POA_STEPS[k][0])
+    ms_k, want = cuda_ms(lambda: fn(*args), 5)
+    W = want[0].shape[0]
+    split = torch.zeros((W, 8), dtype=torch.int64, device="cuda")
+    if getattr(lib, f"cga_{k}_split_set")(split.data_ptr()):
+        raise RuntimeError(f"cga_{k}_split_set failed")
+    real = _build.load
+    _build.load = lambda: lib
+    try:
+        got = fn(*args)
+        torch.cuda.synchronize()
+        c = split.cpu().numpy().astype(np.float64)
+        ms, _ = cuda_ms(lambda: fn(*args), 3)
+    finally:
+        _build.load = real
+    check(maxdiff(got, want) == 0, f"{tag}: the split build of {k} "
+          f"disagrees with the kernel")
+    names = CONSENSUS_SPLIT_PARTS if k == "poa_consensus" else MSA_SPLIT_PARTS
+    parts = c[:, :len(names)]
+    tot = max(parts.sum(), 1)
+    N = args[1].shape[1] if k == "poa_consensus" else args[0].base.shape[1]
+    head = (f"{tag}: {k} at W={W} N={N}: kernel {ms_k:.3f} ms through its "
+            f"wrapper, stamped {ms:.3f} "
+            f"ms (= {ms * 1e3 * sm_mhz:.0f} SM cycles); cycles a window "
+            f"{parts.sum(1).mean():.0f} (the longest {parts.sum(1).max():.0f}"
+            f"): " + ", ".join(f"{n} {v:.0f} ({s_ / tot:.3f})" for n, v, s_ in
+                               zip(names, parts.mean(0), parts.sum(0))))
+    if k == "poa_consensus":
+        sweeps, jacobi, nodes = c[:, 5], c[:, 6], c[:, 7]
+        length = want[2].cpu().numpy().astype(np.float64)
+        print(f"{head}; {nodes.mean():.1f} active nodes a window, "
+              f"{sweeps.mean():.2f} sweeps (max {int(sweeps.max())}; Jacobi "
+              f"{jacobi.mean():.2f}, {int((jacobi > 0).sum())} windows with "
+              f"Jacobi sweeps), "
+              f"{parts[:, 1].sum() / max(sweeps.sum(), 1):.0f} cycles a "
+              f"sweep, {parts[:, 3].sum() / max(length.sum(), 1):.1f} walk "
+              f"cycles a consensus base ({length.mean():.1f} a window)")
+    else:
+        ranks, done, gathers = c[:, 4], c[:, 5], c[:, 6]
+        print(f"{head}; {ranks.mean():.1f} ranks a window, "
+              f"{done.mean():.1f} of them giving a clique its column, "
+              f"{gathers.mean():.2f} gathers; "
+              f"{(parts[:, 0] + parts[:, 1]).sum() / max(ranks.sum(), 1):.0f}"
+              f" gather and chain cycles a rank")
+
+
+def finish_split_main() -> int:
+    """``--finish-split``: finish_split_measure for B8 at its last
+    lockstep launch of the first launch of windows of the correction, deep
+    and MSA shapes, and for B9 at the MSA shape's (this script's data and
+    seed)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.split()[0])
+    libs = finish_split_build()
+    for tag, cfg, n, blen, edits, banded, msa in POA_SHAPES:
+        finish_split_measure(libs["poa_consensus"], "poa_consensus", tag,
+                             last_lockstep_args("consensus", cfg, n, blen,
+                                                edits, banded, msa), sm_mhz)
+        if msa:
+            finish_split_measure(libs["poa_msa"], "poa_msa", tag,
+                                 last_lockstep_args("msa_rows", cfg, n, blen,
+                                                    edits, banded, msa),
+                                 sm_mhz)
+    return 0
+
+
 TURNS_ROUNDS, TURNS_REPS = 5, 5
-#: the parent's launchers (before B3 took its warp plan and B7 its hint
-#: and its plan)
+#: the parent's launchers (before B8 and B9 took their plans)
 _TP, _TI = ctypes.c_void_p, ctypes.c_int
 TURNS_PARENT_SIGNATURES = {
     "cga_nw_diag": (_TP,) * 7 + (_TI,) * 9 + (_TP,),
     "cga_tb_decode_diag": (_TP,) * 5 + (_TI,) * 8 + (_TP,),
-    "cga_nw_row": (_TP,) * 7 + (_TI,) * 8 + (_TP,),
+    "cga_nw_row": (_TP,) * 7 + (_TI,) * 10 + (_TP,),
     "cga_tb_decode_row": (_TP,) * 5 + (_TI,) * 8 + (_TP,),
     "cga_myers": (_TP,) * 7 + (_TI,) * 5 + (_TP,),
-    "cga_poa_topsort": (_TP,) * 9 + (_TI,) * 3 + (_TP,),
+    "cga_poa_topsort": (_TP,) * 10 + (_TI,) * 4 + (_TP,),
     "cga_poa_nwtb": (_TP,) * 15 + (_TI,) * 13 + (_TP,),
     "cga_poa_add": (_TP,) * 17 + (_TI,) * 8 + (_TP,),
     "cga_poa_consensus": (_TP,) * 11 + (_TI,) * 4 + (_TP,),
+    "cga_poa_msa": (_TP,) * 10 + (_TI,) * 6 + (_TP,),
     "cga_poa_window": (_TP,) * 13 + (_TI,) * 18 + (_TP,),
 }
+
+
+def turns_parent_window_scratch(bs) -> int:
+    """The parent's B10 slice of device scratch a window, in bytes: its
+    phase tables held the first B8's 6N + NP + MC int32."""
+    N, P, A = bs.padded_nodes, bs.max_pred_per_node, bs.max_aligned_per_node
+    return 4 * (N * (8 + 2 * P + A) + 2 * (N + bs.padded_seq) + 6 * N + N * P
+                + bs.max_consensus_size)
 
 
 def turns_parent_lib(parent: str) -> ctypes.CDLL:
@@ -3226,19 +3564,6 @@ def turns_banded_pairs(cur, par):
     def row():
         return nw_row.banded_nw_row(q, qlen, t, tlen, r)
 
-    # the parent's B3 is a block a problem, one band lane a thread at this
-    # radius (its nw_row_plan), on its own launcher's arguments
-    W, R4 = nw_row.band_width_row(r), nw_row.tb_rows(Lq)
-    check(W <= 1024, "the parent's B3 at this radius is one lane a thread")
-    row_out = [torch.empty(B, dtype=torch.int32, device="cuda"),
-               torch.empty((R4, B, W), dtype=torch.int8, device="cuda")]
-
-    def row_par():
-        turns_checked("nw_row", par.cga_nw_row(
-            *turns_ptrs(q, qlen, t, tlen, *row_out), None, B, Lq, Lt, r, W,
-            R4, 1, 1, turns_stream()))
-        return row_out
-
     def bottom():
         return myers.myers_bottom_row(q, qlen, t, tlen)
 
@@ -3246,7 +3571,8 @@ def turns_banded_pairs(cur, par):
                 f"{nw_diag.nw_diag_plan(Lq, Lt, r)})", diag,
                 turns_via(par, diag), None))
     out.append((f"B3 nw_row B={B} Lq={Lq} r={r} (this: "
-                f"{nw_row.nw_row_plan(Lq, Lt, r)})", row, row_par, None))
+                f"{nw_row.nw_row_plan(Lq, Lt, r)})", row,
+                turns_via(par, row), None))
     out.append((f"B4 myers B={B} Lq={Lq} Lt={Lt}", bottom,
                 turns_via(par, bottom), None))
     out.append(turns_decode_pair(cur, par, "ukkonen", diag()[1], qlen, tlen,
@@ -3295,19 +3621,21 @@ def turns_add_pair(cur, par, tag, args):
 
 
 def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
-    """B7, B5 and B8 at the last launch of a lockstep run of these windows,
-    B6 at the last launch of the lockstep run of their first launch of
-    windows (last_add_args), and B10 at the window route's first launch of
-    them."""
+    """B7, B5, B8 and (with ``msa``) B9 at the last launch of a lockstep
+    run of these windows, B6 at the last launch of the lockstep run of
+    their first launch of windows (last_add_args), and B10 at the window
+    route's first launch of them."""
     import torch
     from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
                                                              PoaScores)
     from claragenomicsanalysis_tpu_torch.models import poa
-    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_nwtb,
-                                                     poa_topsort, poa_window)
+    from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_msa,
+                                                     poa_nwtb, poa_topsort,
+                                                     poa_window)
     seen = {}
     orig = {k: getattr(poa_window, k)
-            for k in ("topsort", "consensus", "graph_nw_traceback")}
+            for k in ("topsort", "consensus", "graph_nw_traceback",
+                      "msa_rows")}
 
     def spy(k):
         def run(*args):
@@ -3323,7 +3651,8 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
         setattr(poa_window, k, spy(k))
     try:
         poa_window.run_windows(bs, PoaScores(), banded,
-                               *(torch.as_tensor(a).cuda() for a in arrays))
+                               *(torch.as_tensor(a).cuda() for a in arrays),
+                               msa)
     finally:
         for k, f in orig.items():
             setattr(poa_window, k, f)
@@ -3332,48 +3661,69 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
     W, N, P = pred.shape
     topo_plan = poa_topsort.topsort_plan(N)
     assert topo_plan[0] == "warp-shared"
-    ts = [torch.empty_like(level) for _ in range(3)] + [
-        torch.empty(W, dtype=torch.int32, device="cuda")]
-    ts2 = [torch.empty_like(x) for x in ts]
 
-    def topo_cur():
-        err = cur.cga_poa_topsort(
+    def topo(lib, ts):  # one launcher in both builds
+        turns_checked("topsort", lib.cga_poa_topsort(
             *turns_ptrs(level, npred, pred, nc, nc_pre, *ts), None, W, N, P,
-            topo_plan[1], turns_stream())
-        turns_checked("topsort", err)
+            topo_plan[1], turns_stream()))
         return ts
 
-    def topo_par():  # the parent's: a block a window, no hint
-        err = par.cga_poa_topsort(*turns_ptrs(level, npred, pred, nc, *ts2),
-                                  None, W, N, P, turns_stream())
-        turns_checked("topsort", err)
-        return ts2
+    ts, ts2 = ([torch.empty_like(level) for _ in range(3)]
+               + [torch.empty(W, dtype=torch.int32, device="cuda")]
+               for _ in range(2))
 
     *cin, MC = seen["consensus"]
     cin = [x.contiguous() for x in cin]
-    assert poa_consensus.consensus_variant(N, P, MC) == "shared"
-    co = [torch.empty((W, MC), dtype=torch.int32, device="cuda")
-          for _ in range(2)] + [torch.empty(W, dtype=torch.int32,
-                                            device="cuda")]
-    co2 = [torch.empty_like(x) for x in co]
+    cons_plan = poa_consensus.consensus_plan(W, N, P, MC)
+    assert cons_plan[0] == "warp-shared"
+    co, co2 = ([torch.empty((W, MC), dtype=torch.int32, device="cuda")
+                for _ in range(2)]
+               + [torch.empty(W, dtype=torch.int32, device="cuda")]
+               for _ in range(2))
 
     def cons_cur():
         err = cur.cga_poa_consensus(*turns_ptrs(*cin, *co), None, W, N, P, MC,
-                                    turns_stream())
+                                    cons_plan[1], turns_stream())
         turns_checked("consensus", err)
         return co
 
-    def cons_par():
+    def cons_par():     # the parent's: a block a window
         err = par.cga_poa_consensus(*turns_ptrs(*cin, *co2), None, W, N, P,
                                     MC, turns_stream())
         turns_checked("consensus", err)
         return co2
 
     shape = f"W={W} N={N} P={P}"
-    out = [(f"B7 poa_topsort {tag} {shape} (this: {topo_plan})", topo_cur,
-            topo_par, None),
-           (f"B8 poa_consensus {tag} {shape} MC={MC}", cons_cur, cons_par,
-            None)]
+    out = [(f"B7 poa_topsort {tag} {shape} (this: {topo_plan})",
+            lambda: topo(cur, ts), lambda: topo(par, ts2), None),
+           (f"B8 poa_consensus {tag} {shape} MC={MC} (this: {cons_plan})",
+            cons_cur, cons_par, None)]
+
+    if msa:
+        state, order = seen["msa_rows"]
+        A, (S, Lp) = state.alig.shape[2], state.paths.shape[1:]
+        m_in = [x.contiguous() for x in (
+            order, state.npred, state.nalig, state.base, state.pred,
+            state.alig, state.paths, state.node_count)]
+        msa_plan = poa_msa.msa_plan(W, N, P, A, S, Lp)
+        assert msa_plan[0] == "warp-shared"
+        mo, mo2 = ([torch.empty((W, S, N), dtype=torch.int32, device="cuda"),
+                    torch.empty(W, dtype=torch.int32, device="cuda")]
+                   for _ in range(2))
+
+        def msa_cur():
+            turns_checked("msa", cur.cga_poa_msa(
+                *turns_ptrs(*m_in, *mo), None, W, N, P, A, S, Lp, 0,
+                msa_plan[1], turns_stream()))
+            return mo
+
+        def msa_par():  # the parent's: a block a window
+            turns_checked("msa", par.cga_poa_msa(
+                *turns_ptrs(*m_in, *mo2), W, N, P, A, S, Lp, turns_stream()))
+            return mo2
+
+        out.append((f"B9 poa_msa {tag} {shape} A={A} S={S} L={Lp} (this: "
+                    f"{msa_plan})", msa_cur, msa_par, None))
 
     # B5, in its plan (its body now in poa_nwtb.cuh)
     *nin, sc, bw = seen["graph_nw_traceback"]
@@ -3405,7 +3755,8 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
     out.append(turns_add_pair(cur, par, tag, last_add_args(
         cfg, n, blen, edits, banded, msa)))
 
-    # B10 at the window route's first launch (one launcher in both builds)
+    # B10 at the window route's first launch (one launcher in both builds;
+    # the parent's slice of device scratch is its own, larger)
     Ww = len(poa.launch_chunks(n, bs, msa, kernel="window")[0])
     wa = [torch.as_tensor(a[:Ww]).contiguous().cuda() for a in arrays]
     bw = bs.band_width if banded else 0
@@ -3413,10 +3764,18 @@ def turns_poa_pairs(cur, par, tag, cfg, n, blen, edits, banded, msa=False):
     def win():
         return poa_window.poa_window(*wa, bs, PoaScores(), banded, msa)
 
+    def win_parent_scratch():
+        mine = poa_window.window_scratch_bytes
+        poa_window.window_scratch_bytes = turns_parent_window_scratch
+        try:
+            return win()
+        finally:
+            poa_window.window_scratch_bytes = mine
+
     plan = poa_window.window_plan(Ww, bs, bw)
     out.append((f"B10 poa_window {tag} W={Ww} N={N} L={L} P={P}"
-                f"{' msa' * msa} (this: {plan})", win, turns_via(par, win),
-                None))
+                f"{' msa' * msa} (this: {plan})", win,
+                turns_via(par, win_parent_scratch), None))
     return out
 
 
@@ -3490,10 +3849,12 @@ if __name__ == "__main__":
         sys.exit(add_split_main())
     if sys.argv[1:] == ["--topsort-split"]:
         sys.exit(topsort_split_main())
+    if sys.argv[1:] == ["--finish-split"]:
+        sys.exit(finish_split_main())
     if len(sys.argv) == 3 and sys.argv[1] == "--turns":
         sys.exit(kernel_turns_main(sys.argv[2]))
     if len(sys.argv) > 1:
         sys.exit("usage: python3 chip_smoke.py [--nwtb-split | "
                  "--window-split | --add-split | --topsort-split | "
-                 "--turns PARENT_DIR]")
+                 "--finish-split | --turns PARENT_DIR]")
     sys.exit(main())

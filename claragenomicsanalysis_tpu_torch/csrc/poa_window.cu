@@ -17,9 +17,10 @@
 // set; overflows come from the add.
 //
 // What bounds it on Hopper.  The same chains as the per-phase kernels: the
-// rows of the score plane, the serial traceback and walk, the sweeps of
-// topsort and consensus.  What it saves is the traffic and the launches
-// between them: one launch replaces about four per added sequence.  The
+// rows of the score plane, the serial traceback and walk, topsort's and the
+// consensus's passes in rank order, the MSA's column chain.  What it saves
+// is the traffic and the launches between them: one launch replaces about
+// four per added sequence.  The
 // first design (a block of at least 128 threads a window, the graph and a
 // scratch region in shared memory, B5's first graph NW) fitted 3 windows an
 // SM at the correction shape and 7 at the MSA shape, so a launch ran in 4-6
@@ -50,10 +51,17 @@
 //   writes it between sequences (kLdg false).
 // - The walk of the traceback runs on the group's thread 0, the add on its
 //   first warp (poa_add.cuh, the lockstep route's device function).
+// - The consensus and the MSA are the lockstep route's (poa_consensus.cuh
+//   consensus_warp: the scores in one pass in rank order, confirmed;
+//   poa_msa.cuh msa_warp: rank lists gathered 32 ranks at a time, then the
+//   column chain on them), out-of-line calls on the group's first warp, their
+//   tables in the window's phase tables.
 // The wrapper counts the shared memory of a window (window_smem_bytes) and
 // passes it; a count other than this kernel's layout is refused.  Built with
 // CGA_WINDOW_SPLIT (chip_smoke.py --window-split), thread 0 of each window
 // sums the SM cycles of each phase into a per-window record.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -122,13 +130,36 @@ __device__ __noinline__ int window_topsort(const int32_t* npred,
                       order, rank, lane);
 }
 
+// the consensus and the MSA of a window (poa_consensus.cuh, poa_msa.cuh),
+// calls of their own for the same reason, on the group's first warp, their
+// tables in the window's phase tables
+__device__ __noinline__ void window_consensus(
+    const int32_t* npred, const int32_t* pred, const int32_t* predw,
+    const int32_t* base, const int32_t* cov, const int32_t* rank, int nc,
+    int32_t* codes, int32_t* covs, int32_t* length, int N, int P, int MC,
+    int32_t* tables, int lane) {
+  consensus_warp(npred, pred, predw, base, cov, rank, nc, codes, covs, length,
+                 N, P, MC, tables, lane);
+}
+
+__device__ __noinline__ void window_msa(
+    const int32_t* order, const int32_t* npred, const int32_t* nalig,
+    const int32_t* base, const int32_t* pred, const int32_t* alig,
+    const int32_t* paths, int nc, int32_t* rows, int32_t* n_cols, int N,
+    int P, int A, int S, int L, int32_t* tables, int lane) {
+  msa_warp(order, npred, nalig, base, pred, alig, paths, nc, rows, n_cols, N,
+           P, A, S, L, tables, tables + N, lane);
+}
+
 // ints of a window's slice of the device scratch: the graph (5 node fields,
 // level, order, rank, pred and predw, alig), the path pn and pp (N + L
-// each), then the phases' tables, sized for the largest (the consensus's;
-// topsort's 5N + 2 and the MSA's columns are smaller)
+// each), then the phases' tables, sized for the largest of topsort's,
+// the consensus's and the MSA's (columns and rank lists)
 __host__ long long window_slice_ints(int N, int P, int A, int L, int MC) {
-  return (long long)N * (8 + 2 * P + A) + 2LL * (N + L) +
-         consensus_scratch_ints(N, P, MC);
+  long long tables = topsort_table_ints(N);
+  tables = std::max(tables, consensus_table_ints(N, MC));
+  tables = std::max(tables, (long long)N + msa_list_ints(P, A));
+  return (long long)N * (8 + 2 * P + A) + 2LL * (N + L) + tables;
 }
 
 struct Shape {
@@ -302,15 +333,16 @@ __device__ __forceinline__ void window_body(WINDOW_PARAMS) {
                    gt);
   group_sync<kWarp>();
   SPLIT_MARK(6);
-  consensus_group<kWarp>(npred, pred, predw, base, cov, rank, nc,
-                         codes + (size_t)w * MC, covs + (size_t)w * MC,
-                         lengths + w, N, P, MC, tables, gt, gn);
+  if (gt < 32)
+    window_consensus(npred, pred, predw, base, cov, rank, nc,
+                     codes + (size_t)w * MC, covs + (size_t)w * MC,
+                     lengths + w, N, P, MC, tables, gt);
   group_sync<kWarp>();
   SPLIT_MARK(7);
-  if (rows != nullptr)
-    msa_group<kWarp>(order, npred, nalig, base, pred, alig, PT, nc,
-                     rows + (size_t)w * S * N, n_cols + w, N, P, A, S, L,
-                     tables, gt, gn);
+  if (rows != nullptr && gt < 32)
+    window_msa(order, npred, nalig, base, pred, alig, PT, nc,
+               rows + (size_t)w * S * N, n_cols + w, N, P, A, S, L, tables,
+               gt);
   SPLIT_MARK(8);
   if (gt == 0) statuses[w] = state[kSt];
 #ifdef CGA_WINDOW_SPLIT

@@ -44,8 +44,8 @@ SIGNATURES = {
     "cga_poa_topsort": (_PTR,) * 10 + (_INT,) * 4 + (_PTR,),
     "cga_poa_nwtb": (_PTR,) * 15 + (_INT,) * 13 + (_PTR,),
     "cga_poa_add": (_PTR,) * 17 + (_INT,) * 8 + (_PTR,),
-    "cga_poa_consensus": (_PTR,) * 11 + (_INT,) * 4 + (_PTR,),
-    "cga_poa_msa": (_PTR,) * 10 + (_INT,) * 6 + (_PTR,),
+    "cga_poa_consensus": (_PTR,) * 11 + (_INT,) * 5 + (_PTR,),
+    "cga_poa_msa": (_PTR,) * 11 + (_INT,) * 8 + (_PTR,),
     "cga_poa_window": (_PTR,) * 13 + (_INT,) * 18 + (_PTR,),
 }
 

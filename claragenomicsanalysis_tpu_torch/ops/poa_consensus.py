@@ -15,9 +15,12 @@ written from the end of an ``MC``-long buffer, so an overlong path keeps its
 
 - :func:`consensus` is the entry point (kernel ``csrc/poa_consensus.cu``
   for CUDA tensors, counted in ``consensus.launches``; the plain version for
-  CPU tensors).
+  CPU tensors).  The kernel visits each window's nodes once in rank order,
+  confirms the fixpoint, and runs the Jacobi sweeps only where that fails
+  (a rank that is not a topological permutation of the active nodes).
 - :func:`consensus_torch` is the plain PyTorch version, vectorised over
   windows with Python loops over sweeps and backtrack steps.
+- :func:`consensus_plan` chooses where the kernel keeps a window's tables.
 """
 
 import torch
@@ -27,20 +30,33 @@ from . import _build
 from .poa_state import NEG, padget_cols
 
 
-def consensus_smem_bytes(N: int, P: int, MC: int) -> int:
-    """Shared memory a block of the kernel's shared variant takes: the
-    scores (two buffers), heaviest in-edges, tie counts, flags, best preds,
-    tied preds and the walk back, ``4 (6N + NP + MC)`` bytes.  Past
-    ``_build.SMEM_PER_BLOCK`` the device variant keeps the same tables in
-    device scratch, as many bytes a window."""
-    return 4 * (6 * N + N * P + MC)
+#: windows a block of the kernel (one a warp) where the tables fit
+CONSENSUS_WINDOWS = 4
 
 
-def consensus_variant(N: int, P: int, MC: int) -> str:
-    """``"shared"`` where :func:`consensus_smem_bytes` fits a block, else
-    ``"device"``."""
-    fits = consensus_smem_bytes(N, P, MC) <= _build.SMEM_PER_BLOCK
-    return "shared" if fits else "device"
+def consensus_table_bytes(N: int, MC: int) -> int:
+    """The tables the kernel keeps a window (``csrc/poa_consensus.cuh``
+    consensus_table_ints): the scores, a second buffer (the visit order,
+    Jacobi's second score buffer, the best preds), the heaviest in-edge
+    weights, the first tied preds, the tie counts and the ranks (N int32
+    each) and the walk back (MC int32)."""
+    return 4 * (6 * N + MC)
+
+
+def consensus_plan(W: int, N: int, P: int, MC: int) -> tuple:
+    """-> (variant, windows a block) of a launch of W windows of N nodes, P
+    pred slots and MC consensus bases: a warp a window, ``"warp-shared"``
+    with the most windows (CONSENSUS_WINDOWS, 2 or 1) whose
+    :func:`consensus_table_bytes` fit a block (``_build.SMEM_PER_BLOCK``),
+    else ``"warp-device"`` (CONSENSUS_WINDOWS a block, the tables in a
+    device scratch slice a window).  No table depends on W or P: a node's
+    tied preds past its first are read from pred and predw where they
+    lie."""
+    per = consensus_table_bytes(N, MC)
+    for n in (CONSENSUS_WINDOWS, 2, 1):
+        if n * per <= _build.SMEM_PER_BLOCK:
+            return "warp-shared", n
+    return "warp-device", CONSENSUS_WINDOWS
 
 
 def _check(npred, pred, predw, base, cov, rank, node_count):
@@ -148,9 +164,10 @@ def consensus(npred, pred, predw, base, cov, rank, node_count,
     length = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return codes, covs, length
-    device = consensus_variant(N, P, max_cons) == "device"
+    variant, windows = consensus_plan(W, N, P, max_cons)
+    device = variant == "warp-device"
     scratch = torch.empty(
-        W * consensus_smem_bytes(N, P, max_cons) // 4 if device else 0,
+        W * consensus_table_bytes(N, max_cons) // 4 if device else 0,
         dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev), kernel_span(
@@ -158,8 +175,7 @@ def consensus(npred, pred, predw, base, cov, rank, node_count,
         err = lib.cga_poa_consensus(
             *(t.data_ptr() for t in ins), codes.data_ptr(), covs.data_ptr(),
             length.data_ptr(), scratch.data_ptr() if device else None, W, N,
-            P, max_cons,
-            torch.cuda.current_stream().cuda_stream)
+            P, max_cons, windows, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_consensus")
     consensus.launches += 1
     return codes, covs, length

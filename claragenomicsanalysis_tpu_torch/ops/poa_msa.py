@@ -27,6 +27,7 @@ rows ``Batch.get_msa`` shows.
   tensors, counted in ``msa.launches``; the plain version for CPU tensors).
 - :func:`msa_torch` is the plain PyTorch version, vectorised over windows
   with Python loops over ranks and over sequence positions.
+- :func:`msa_plan` chooses where the kernel keeps a window's tables.
 """
 
 import torch
@@ -34,6 +35,56 @@ import torch
 from ..utils.profiling import kernel_span
 from . import _build
 from .poa_state import PoaState, padget_cols
+
+#: windows a block of the kernel (one a warp) where the tables fit
+MSA_WINDOWS = 4
+#: plan -> the launcher's code for it
+_PLAN_CODES = {"warp-shared": 0, "warp-cols-shared": 1, "warp-device": 2}
+
+
+def msa_gather_ranks(P: int, A: int) -> int:
+    """Ranks one gather lists, a lane each (``csrc/poa_msa.cuh``
+    msa_gather_ranks): 32, or as many as 8,192 int32 hold at (A + 1)
+    (P + 1) a rank, its members and their pred slots (at least one)."""
+    return min(32, max(1, 8192 // ((A + 1) * (P + 1))))
+
+
+def msa_list_ints(P: int, A: int) -> int:
+    """int32 of a window's rank lists: :func:`msa_gather_ranks` ranks of
+    (A + 1) (P + 1) each."""
+    return msa_gather_ranks(P, A) * (A + 1) * (P + 1)
+
+
+def msa_table_bytes(N: int, P: int, A: int) -> int:
+    """The tables the kernel keeps a window: the columns (N int32) and the
+    rank lists (:func:`msa_list_ints`)."""
+    return 4 * (N + msa_list_ints(P, A))
+
+
+def msa_plan(W: int, N: int, P: int, A: int, S: int, L: int) -> tuple:
+    """-> (variant, windows a block) of a launch of W windows of N nodes, P
+    pred slots, A aligned slots and S sequences of L positions: a warp a
+    window, ``"warp-shared"`` with the most windows (MSA_WINDOWS, 2 or 1)
+    whose :func:`msa_table_bytes` fit a block (``_build.SMEM_PER_BLOCK``);
+    else ``"warp-cols-shared"`` (one a block) where the columns alone fit,
+    the rank lists in a device scratch slice, so that every window whose
+    columns the first design held in shared memory keeps them there (C10:
+    4N bytes, N <= 58,112); else ``"warp-device"`` (MSA_WINDOWS a block,
+    both in the scratch slice).  W, S and L enter no table: the rows and
+    paths are read and written where they lie."""
+    for n in (MSA_WINDOWS, 2, 1):
+        if n * msa_table_bytes(N, P, A) <= _build.SMEM_PER_BLOCK:
+            return "warp-shared", n
+    if 4 * N <= _build.SMEM_PER_BLOCK:
+        return "warp-cols-shared", 1
+    return "warp-device", MSA_WINDOWS
+
+
+def msa_scratch_ints(variant: str, N: int, P: int, A: int) -> int:
+    """int32 of device scratch the kernel takes a window in ``variant``:
+    none, the rank lists, or the columns and the lists."""
+    return {"warp-shared": 0, "warp-cols-shared": msa_list_ints(P, A),
+            "warp-device": N + msa_list_ints(P, A)}[variant]
 
 
 def _check(state: PoaState, order):
@@ -133,12 +184,17 @@ def msa(state: PoaState, order):
     n_cols = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return rows, n_cols
+    variant, windows = msa_plan(W, N, P, A, S, L)
+    per = msa_scratch_ints(variant, N, P, A)
+    scratch = torch.empty(W * per, dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev), kernel_span("poa_msa", (state, order),
                                              W * (N + S * L)):
         err = lib.cga_poa_msa(
             *(t.data_ptr() for t in ins), rows.data_ptr(), n_cols.data_ptr(),
-            W, N, P, A, S, L, torch.cuda.current_stream().cuda_stream)
+            scratch.data_ptr() if per else None, W, N, P, A, S, L,
+            _PLAN_CODES[variant], windows,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_msa")
     msa.launches += 1
     return rows, n_cols

@@ -39,14 +39,14 @@ from ..utils.mathutils import round_up
 from ..utils.profiling import kernel_span, trace_range
 from . import _build
 from .poa_add import MAX_ALIGNED, add_alignment, add_alignment_torch
-from .poa_consensus import consensus, consensus_torch
+from .poa_consensus import consensus, consensus_table_bytes, consensus_torch
 from .poa_msa import msa as msa_rows
-from .poa_msa import msa_torch
+from .poa_msa import msa_table_bytes, msa_torch
 from .poa_nwtb import (BLOCK_WINDOWS, RING_ROWS, graph_nw_traceback,
                        graph_nw_traceback_torch, group_plan, nwtb_smem_bytes,
                        nwtb_word_bytes, ring_width)
 from .poa_state import init_level, init_state
-from .poa_topsort import topsort, topsort_torch
+from .poa_topsort import topsort, topsort_table_bytes, topsort_torch
 
 _LOOP = int(StatusType.LOOP_COUNT_EXCEEDED_UPPER_BOUND)
 _BAND = int(StatusType.EXCEEDED_BAND_WIDTH)
@@ -127,11 +127,15 @@ def window_scratch_bytes(bs: BatchSize) -> int:
     """Device scratch one window takes in ``csrc/poa_window.cu``: the graph
     (5 node fields, level, order, rank, pred and predw, alig), the path
     (``pn``, ``pp``: N + L each) and the phases' tables, sized for the
-    largest (the consensus's ``6N + NP + MC``), all int32.  The score plane
-    comes on top (:func:`..poa_nwtb.plane_bytes`)."""
+    largest of topsort's (:func:`..poa_topsort.topsort_table_bytes`), the
+    consensus's (:func:`..poa_consensus.consensus_table_bytes`) and the
+    MSA's (:func:`..poa_msa.msa_table_bytes`).  The score plane comes on
+    top (:func:`..poa_nwtb.plane_bytes`)."""
     N, L, MC = bs.padded_nodes, bs.padded_seq, bs.max_consensus_size
     P, A = bs.max_pred_per_node, bs.max_aligned_per_node
-    return 4 * (N * (8 + 2 * P + A) + 2 * (N + L) + 6 * N + N * P + MC)
+    tables = max(topsort_table_bytes(N), consensus_table_bytes(N, MC),
+                 msa_table_bytes(N, P, A))
+    return 4 * (N * (8 + 2 * P + A) + 2 * (N + L)) + tables
 
 
 def window_plan(W: int, bs: BatchSize, band_width: int = 0,

@@ -155,16 +155,20 @@ def test_launch_chunks_count_the_device_variants_scratch():
     assert banded.scratch_bytes_per_problem(10_000, 10_008, 72, "row") == 0
 
 
-@pytest.mark.parametrize("S, variant", [(1_816, "shared"),
-                                        (1_817, "device")])
+@pytest.mark.parametrize("S, variant", [(1_816, ("warp-shared", 1)),
+                                        (1_817, ("warp-shared", 1))])
 def test_consensus_switches_near_1800_bases(S, variant):
     """cli poa sizes a batch from its longest sequence S: N = 3S (padded
-    to 8), P = 4, MC = 2S, so B8's tables take about 128 S bytes."""
+    to 8), P = 4, MC = 2S.  B8's first design kept a tied-pred list of N P
+    ints among its tables (about 128 S bytes) and left shared memory past
+    1,816 bases; its tables now take 4 (6N + MC), about 80 S bytes, so
+    both sizes keep them in shared memory, one window a block
+    (tests/test_torch_consensus_plan.py pins where that ends: 2,904 /
+    2,905)."""
     bs = BatchSize(max_sequence_size=S, max_sequences_per_poa=3)
     N, P, MC = bs.padded_nodes, bs.max_pred_per_node, bs.max_consensus_size
-    assert poa_consensus.consensus_smem_bytes(N, P, MC) == \
-        4 * (6 * N + N * P + MC)
-    assert poa_consensus.consensus_variant(N, P, MC) == variant
+    assert poa_consensus.consensus_table_bytes(N, MC) == 4 * (6 * N + MC)
+    assert poa_consensus.consensus_plan(3, N, P, MC) == variant
 
 
 @pytest.mark.parametrize("S, plan", [(2_048, ("warp-shared", 1)),
@@ -298,11 +302,11 @@ def test_window_plan_by_window_count_and_shape(W, bs, band, plan):
 @pytest.mark.parametrize("bs, band, smem, scratch", [
     # ring 8 x 257 words, facts 2 x (4 + 3 x 8), sequence 64, state 4 ints
     (CORR, 0, 4 * (8 * 257 + 56 + 64 + 4),
-     4 * (384 * 28 + 2 * 640 + 6 * 384 + 384 * 8 + 512)),
+     4 * (384 * 28 + 2 * 640 + 6 * 384 + 512)),
     (DEEP, 256, 4 * (8 * 257 + 104 + 128 + 4),
-     4 * (1024 * 48 + 2 * 1536 + 6 * 1024 + 1024 * 16 + 1024)),
+     4 * (1024 * 48 + 2 * 1536 + 6 * 1024 + 1024)),
     (MSA_BS, 0, 4 * (8 * 129 + 32 + 32 + 4),
-     4 * (256 * 20 + 2 * 384 + 6 * 256 + 256 * 4 + 256)),
+     4 * (256 * 20 + 2 * 384 + 6 * 256 + 256)),
 ])
 def test_window_counts_at_the_smoke_shapes(bs, band, smem, scratch):
     """A window's shared memory (the graph NW's ring, two rows' facts, the
@@ -316,9 +320,9 @@ def test_window_counts_at_the_smoke_shapes(bs, band, smem, scratch):
 
 
 @pytest.mark.parametrize("bs, msa, n, sizes", [
-    (CORR, False, 4_096, [2_219, 1_877]),
+    (CORR, False, 4_096, [2_277, 1_819]),
     (MSA_BS, True, 4_096, [4_096]),
-    (DEEP, False, 512, [434, 78]),
+    (DEEP, False, 512, [446, 66]),
 ])
 def test_launch_chunks_follow_the_window_route(bs, msa, n, sizes):
     """The window route's launches are cut by its own bytes a window: the
@@ -641,12 +645,12 @@ def test_fan_in_graph_on_card(P, variant, scores, cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_cli_poa_shapes_run_device_variants(cuda_device):
-    """Windows of 2,048-base sequences at cli poa's sizes: B8 on its
-    device variant, B5 a block a window; every step of the lockstep route
-    equal to the plain versions."""
+    """Windows of 2,048-base sequences at cli poa's sizes: B8 one window
+    a block (its first design's device variant), B5 a block a window;
+    every step of the lockstep route equal to the plain versions."""
     bs = BatchSize(max_sequence_size=2_048, max_sequences_per_poa=3)
-    assert poa_consensus.consensus_variant(
-        bs.padded_nodes, 4, bs.max_consensus_size) == "device"
+    assert poa_consensus.consensus_plan(
+        2, bs.padded_nodes, 4, bs.max_consensus_size) == ("warp-shared", 1)
     arrays = [torch.from_numpy(a).to(cuda_device)
               for a in poa_windows(2, 2_040, 3, bs.padded_seq, 4)]
     got = poa_window.run_windows(bs, PoaScores(), False, *arrays)
