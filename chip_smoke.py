@@ -111,7 +111,20 @@ Phases, one line or more each:
      device memory, B5 past L = 8,191), each kernel at its largest launch
      against its plain version with times and bounds; then C10, B9
      launched directly at N = 58,120 (cli poa's sizing for 19,371-base
-     sequences, its tables in device memory) against its plain version.
+     sequences, its tables in device memory) against its plain version;
+ 19. the mapper (torch ops, no kernel): ``cli map --device cuda`` against
+     both map goldens, byte for byte; then 10 Mbp of simulated reads (1,000
+     x 10 kb, a 3 MB index budget: 16 chunk pairs) through
+     ``map_all_vs_all`` on the card and on the CPU, rows equal, checked
+     against the reads' placements;
+ 20. the map main path at full size, ``scripts/bench_map_scale.py``'s
+     default shape: 10,000 reads of median 10 kb (100 Mbp, 20x of a 5 Mbp
+     genome) through ``map_all_vs_all(..., device="cuda")`` at
+     ``MapperConfig()``'s defaults (16 chunk pairs), one warm-up and one
+     timed run: Mbp/s, overlaps/s, statuses, anchors, peak device memory,
+     each ``mapper.*`` stage's CUDA-event and host time, the host share,
+     and the two largest host parts re-run alone (the reads' simulation is
+     set-up, outside the wall).
 Then a line per redesigned kernel (B1-B10) with its time
 at each main path's largest launch beside the first design's as PERF.md
 records it (FIRST_DESIGN_MS, not measured by this run) and its bound, and a
@@ -2541,6 +2554,214 @@ def phase_row(pairs, ukk, myers_results, sm_mhz: float) -> dict:
     return per
 
 
+MAP_ARGS = ["-k", "15", "-w", "5", "--min-overlap-len", "100",
+            "--min-overlap-fraction", "0.3", "--min-bases-per-residue", "500"]
+MAP_STAGES = ("mapper.sketch", "mapper.index_sort", "mapper.match",
+              "mapper.chain", "mapper.compact")    # top-level, disjoint
+MAP_SUBSTAGES = ("mapper.match.count", "mapper.match.expand")
+
+
+def map_reads(genome_len: int, n: int, median: int, seed: int):
+    """(parser, reads) of n noisy reads (5 % error, both strands) from a
+    random genome, by the port's simulators."""
+    from claragenomicsanalysis_tpu_torch.io.fasta import (FastaParser,
+                                                          FastaSequence)
+    from claragenomicsanalysis_tpu_torch.simulators import (
+        NoisyReadSimulator, PoissonGenomeSimulator)
+    genome = PoissonGenomeSimulator(seed=seed).build_reference(genome_len)
+    reads = NoisyReadSimulator(seed=seed, error_rate=0.05).generate_reads(
+        genome, n, median)
+    return FastaParser("<mem>", records=[FastaSequence(r.name, r.seq)
+                                         for r in reads]), reads
+
+
+def map_truth(reads, rows, min_true: int = 2000) -> tuple[float, float]:
+    """(precision, recall) of overlap rows against the reads' placements:
+    the share of rows whose two reads overlap on the genome, and the share
+    of ordered pairs overlapping by >= min_true bases that got a row."""
+    import numpy as np
+    st = np.array([r.reference_start for r in reads])
+    en = np.array([r.reference_end for r in reads])
+    q, t = rows[0].astype(np.int64), rows[1].astype(np.int64)
+    precision = float(np.mean(np.minimum(en[q], en[t])
+                              - np.maximum(st[q], st[t]) > 0))
+    n = len(reads)
+    found = np.unique(q * n + t)
+    want = []
+    for a in range(0, n, 1024):
+        ov = (np.minimum(en[a:a + 1024, None], en[None, :])
+              - np.maximum(st[a:a + 1024, None], st[None, :]))
+        ia, ib = np.nonzero(ov >= min_true)
+        keep = ia + a != ib
+        want.append((ia[keep] + a) * n + ib[keep])
+    want = np.concatenate(want)
+    return precision, float(np.mean(np.isin(want, found)))
+
+
+def phase_map_correctness():
+    """Phase 19: ``cli map --device cuda`` against both map goldens, then
+    10 Mbp of reads (1,000 x 10 kb, a 3 MB index budget: 4 chunks, 16
+    chunk pairs) on the card against the port's CPU run, row for row."""
+    import numpy as np
+    from claragenomicsanalysis_tpu_torch import cli
+    from claragenomicsanalysis_tpu_torch.core.config import MapperConfig
+    from claragenomicsanalysis_tpu_torch.models import mapper
+    data = os.path.join(ROOT, "data")
+    for inputs, golden in ((["sample_reads.fasta"], "sample_overlaps.paf"),
+                           (["sample_reads.fasta", "sample_targets.fasta"],
+                            "sample_qt.paf")):
+        with open(os.path.join(data, "golden", golden)) as f:
+            want = f.read()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["map"] + [os.path.join(data, x) for x in inputs]
+                          + MAP_ARGS + ["--device", "cuda"])
+        same = rc == 0 and buf.getvalue() == want
+        print(f"phase 19 golden: map {' '.join(inputs)} --device cuda vs "
+              f"data/golden/{golden}: {'identical' if same else 'DIFFERENT'}"
+              f" ({len(want.splitlines())} lines)")
+        check(same, f"cli map --device cuda differs from {golden}")
+    t0 = time.perf_counter()
+    parser, reads = map_reads(500_000, 1000, 10_000, SEED + 19)
+    sim_s = time.perf_counter() - t0
+    cfg = MapperConfig(index_size_mb=3)
+    res, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = mapper.map_all_vs_all(parser, cfg, device=dev)
+        walls[dev] = time.perf_counter() - t0
+    same = np.array_equal(res["cuda"].rows, res["cpu"].rows)
+    precision, recall = map_truth(reads, res["cuda"].rows)
+    print(f"phase 19 map 10 Mbp ({len(reads)} reads, 16 chunk pairs, reads "
+          f"simulated in {sim_s:.1f} s): cuda {res['cuda'].rows.shape[1]} "
+          f"overlaps in {walls['cuda']:.2f} s (first run), cpu "
+          f"{res['cpu'].rows.shape[1]} in {walls['cpu']:.2f} s: rows "
+          f"{'identical' if same else 'DIFFERENT'}, statuses "
+          f"{sorted(set(s.name for s in res['cuda'].statuses))}; against the "
+          f"placements: precision {precision:.4f}, recall {recall:.4f} "
+          f"(pairs overlapping >= 2 kb)")
+    check(same and res["cuda"].statuses == res["cpu"].statuses
+          and len(res["cuda"].statuses) == 16,
+          "phase 19: the card's rows or statuses differ from the CPU's")
+    check(res["cuda"].rows.shape[1] > 0 and precision == 1.0
+          and recall >= 0.99, f"phase 19: precision {precision}, recall "
+          f"{recall}")
+
+
+def phase_map_main() -> dict:
+    """Phase 20, the map main path at full size: 10,000 reads of median
+    10 kb (100 Mbp, 20x of a 5 Mbp genome; scripts/bench_map_scale.py's
+    default shape) through ``map_all_vs_all(..., device="cuda")`` at
+    ``MapperConfig()``'s defaults (4 index chunks, 16 chunk pairs): one
+    untimed warm-up, then a timed run with each mapper.* stage's device
+    time by CUDA events."""
+    import collections
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.core.config import MapperConfig
+    from claragenomicsanalysis_tpu_torch.models import mapper
+    from claragenomicsanalysis_tpu_torch.utils.genomeutils import encode
+    from claragenomicsanalysis_tpu_torch.utils.profiling import stage_times
+    t0 = time.perf_counter()
+    parser, reads = map_reads(5_000_000, 10_000, 10_000, 11)
+    sim_s = time.perf_counter() - t0
+    total_bases = sum(len(r.seq) for r in reads)
+    cfg = MapperConfig()
+    n_chunks = len(parser.get_chunks(cfg.index_size_mb * 1_000_000))
+    print(f"phase 20 data: {len(reads)} reads, {total_bases / 1e6:.3f} Mbp, "
+          f"{n_chunks} index chunks, simulated in {sim_s:.1f} s (not in the "
+          f"wall)")
+    anchors = []
+    create = mapper.Matcher.create_matcher
+
+    def counted(*a, **k):
+        m = create(*a, **k)
+        anchors.append(m.n_anchors)
+        return m
+
+    mapper.Matcher.create_matcher = counted
+    try:
+        warm = mapper.map_all_vs_all(parser, cfg, device="cuda")
+        torch.cuda.synchronize()
+        anchors.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with stage_times() as st:
+            t0 = time.perf_counter()
+            res = mapper.map_all_vs_all(parser, cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ms = st.ms()
+            host_ms = st.host_ms()
+            calls = st.count()
+    finally:
+        mapper.Matcher.create_matcher = create
+    peak = torch.cuda.max_memory_allocated()
+    device_s = sum(ms.get(k, 0.0) for k in MAP_STAGES) / 1e3
+    # two host parts of the run, re-run alone on the same data: the reads'
+    # encoding into the chunks' (B, L) arrays (Index.create_index) and the
+    # final merge (canonical order, Overlap objects)
+    t0 = time.perf_counter()
+    for f, p in parser.get_chunks(cfg.index_size_mb * 1_000_000):
+        seqs = [parser.get_sequence_by_id(i).seq for i in range(f, p)]
+        buf = np.full((len(seqs), max(map(len, seqs))), -1, dtype=np.int8)
+        for i, sq in enumerate(seqs):
+            buf[i, : len(sq)] = encode(sq)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mapper.Overlapper.rows_to_overlaps(res.rows[:, mapper._canonical_order(
+        res.rows)])
+    merge_s = time.perf_counter() - t0
+    n_ov = len(res.overlaps)
+    statuses = collections.Counter(s.name for s in res.statuses)
+    precision, recall = map_truth(reads, res.rows)
+    out = {"reads": len(reads), "mbp": total_bases / 1e6,
+           "chunk_pairs": len(res.statuses), "wall_s": wall,
+           "mbp_per_s": total_bases / wall / 1e6, "overlaps": n_ov,
+           "overlaps_per_s": n_ov / wall, "statuses": dict(statuses),
+           "anchors": sum(anchors), "max_pair_anchors": max(anchors),
+           "peak_device_bytes": peak, "device_stage_s": device_s,
+           "host_s": wall - device_s, "host_share": (wall - device_s) / wall,
+           "host_encode_s": encode_s, "host_merge_s": merge_s,
+           "stage_ms": {k: ms[k] for k in MAP_STAGES + MAP_SUBSTAGES
+                        if k in ms},
+           "stage_host_ms": {k: host_ms[k] for k in MAP_STAGES
+                             + MAP_SUBSTAGES if k in host_ms},
+           "outside_stages_s": wall - sum(host_ms.get(k, 0.0)
+                                          for k in MAP_STAGES) / 1e3,
+           "stage_calls": {k: calls[k] for k in MAP_STAGES if k in calls},
+           "precision": precision, "recall": recall}
+    print(f"phase 20 map main path (100 Mbp, MapperConfig() defaults): "
+          f"{n_ov} overlaps in {wall:.3f} s = {out['mbp_per_s']:.3f} Mbp/s, "
+          f"{out['overlaps_per_s']:.1f} overlaps/s; statuses "
+          f"{dict(statuses)}; {out['anchors']} anchors over "
+          f"{len(anchors)} pairs (largest pair {out['max_pair_anchors']}); "
+          f"peak device memory {peak / 2**30:.3f} GiB")
+    print("phase 20 stages (device time by CUDA events / host time inside "
+          "the range, ms): " + ", ".join(
+              f"{k} {v:.3f} / {out['stage_host_ms'].get(k, 0.0):.3f} "
+              f"({calls.get(k, 0)} ranges)"
+              for k, v in out["stage_ms"].items())
+          + f"; outside every range {out['outside_stages_s']:.3f} s")
+    print(f"phase 20 host share: wall {wall:.3f} s - top-level stages "
+          f"{device_s:.3f} s = {out['host_s']:.3f} s host "
+          f"({out['host_share']:.4f} of the wall), of which the reads' "
+          f"encoding {encode_s:.3f} s and the final merge {merge_s:.3f} s "
+          f"(each re-run alone); against the placements: precision "
+          f"{precision:.4f}, recall {recall:.4f}")
+    print("phase 20 map: " + json.dumps(out))
+    check(np.array_equal(res.rows, warm.rows) and n_ov > 0
+          and res.statuses == warm.statuses,
+          "phase 20: the timed run's rows differ from the warm-up's")
+    lens = np.array([len(r.seq) for r in reads])
+    r = res.rows
+    check(((0 <= r[2]) & (r[2] < r[3]) & (r[3] <= lens[r[0]])
+           & (0 <= r[4]) & (r[4] < r[5]) & (r[5] <= lens[r[1]])).all()
+          and precision == 1.0 and recall >= 0.95,
+          f"phase 20: rows out of range or precision {precision}, recall "
+          f"{recall}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2595,6 +2816,8 @@ def main() -> int:
 
     for k, v in FORCED_PLANS.items():
         variants.setdefault(k, []).extend(v)
+    phase_map_correctness()
+    phase_map_main()
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "claragenomicsanalysis_tpu")
@@ -2738,6 +2961,13 @@ def main() -> int:
 #     prints the kernel's and the stamped kernel's time, each part's cycles
 #     a window and share, and the sweeps or the ranks a window.
 #
+#   python3 chip_smoke.py --map-profile [OUT]
+#     Where the map main path's time goes inside its stages: phase 20's
+#     100 Mbp run (after a warm-up) under torch.profiler, its ops by device
+#     time, then again under cProfile, its host functions by own and
+#     cumulative time.  Prints the heads of the tables and writes them whole
+#     to OUT (default build/map_profile.txt).
+#
 #   python3 chip_smoke.py --turns PARENT_DIR
 #     B1 (nw_diag), B2 (tb_decode, both layouts), B3 (nw_row), B4 (myers),
 #     B5 (poa_nwtb), B6 (poa_add), B7 (poa_topsort), B8 (poa_consensus), B9
@@ -2758,6 +2988,66 @@ def main() -> int:
 #     parent, this, this, parent, TURNS_ROUNDS times,
 #     TURNS_REPS launches a sample; the medians print with the card's name
 #     and power limit.
+
+def map_profile_main(out: str) -> int:
+    """``--map-profile [OUT]``: phase 20's run under torch.profiler and
+    cProfile, the whole tables written to ``out``."""
+    import cProfile
+    import pstats
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from claragenomicsanalysis_tpu_torch.core.config import MapperConfig
+    from claragenomicsanalysis_tpu_torch.models import mapper
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    parser, _ = map_reads(5_000_000, 10_000, 10_000, 11)
+    cfg = MapperConfig()
+
+    def run():
+        res = mapper.map_all_vs_all(parser, cfg, device="cuda")
+        torch.cuda.synchronize()
+        return res
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    print(f"map main path, unprofiled: {time.perf_counter() - t0:.3f} s")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev = sum(e.self_device_time_total for e in ka) / 1e3
+    by_dev = ka.table(sort_by="self_device_time_total", row_limit=40)
+    by_cpu = ka.table(sort_by="self_cpu_time_total", row_limit=40)
+    pr = cProfile.Profile()
+    pr.enable()
+    t0 = time.perf_counter()
+    run()
+    wall_c = time.perf_counter() - t0
+    pr.disable()
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(40)
+    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(40)
+    head = (f"torch.profiler: wall {wall:.3f} s, ops' device time "
+            f"{dev:.3f} ms (busy share {dev / 1e3 / wall:.4f})")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        f.write("\n\n".join([head, by_dev, by_cpu,
+                              f"cProfile: wall {wall_c:.3f} s",
+                              buf.getvalue()]))
+    print(head)
+    print("\n".join(by_dev.splitlines()[:30]))
+    print(f"cProfile: wall {wall_c:.3f} s")
+    print("\n".join(buf.getvalue().splitlines()[:60]))
+    return 0
+
 
 #: stamps added to csrc/poa_nwtb.cuh: per window clk[0..3] the starts of
 #: the forward pass, the end cell, the walk and its end, clk[4] the walk's
@@ -3851,10 +4141,15 @@ if __name__ == "__main__":
         sys.exit(topsort_split_main())
     if sys.argv[1:] == ["--finish-split"]:
         sys.exit(finish_split_main())
+    if sys.argv[1:2] == ["--map-profile"] and len(sys.argv) <= 3:
+        sys.exit(map_profile_main(sys.argv[2] if len(sys.argv) == 3 else
+                                  os.path.join(ROOT, "build",
+                                               "map_profile.txt")))
     if len(sys.argv) == 3 and sys.argv[1] == "--turns":
         sys.exit(kernel_turns_main(sys.argv[2]))
     if len(sys.argv) > 1:
         sys.exit("usage: python3 chip_smoke.py [--nwtb-split | "
                  "--window-split | --add-split | --topsort-split | "
-                 "--finish-split | --turns PARENT_DIR]")
+                 "--finish-split | --map-profile [OUT] | --turns "
+                 "PARENT_DIR]")
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""The aligner's and the POA batch's configurations (copies of
-``AlignerConfig``, ``PoaScores`` and ``BatchSize`` from
+"""The aligner's, the POA batch's and the mapper's configurations (copies
+of ``AlignerConfig``, ``PoaScores``, ``BatchSize`` and ``MapperConfig`` from
 ``claragenomicsanalysis_tpu/core/config.py``)."""
 
 from dataclasses import dataclass
@@ -65,3 +65,34 @@ class BatchSize:
     @property
     def padded_seq(self) -> int:
         return round_up(self.max_sequence_size, 128)
+
+
+@dataclass(frozen=True)
+class MapperConfig:
+    """Overlapper parameters (the cudamapper CLI flags).  The CLI's
+    ``--min-overlap-fraction`` defaults to 0.8, this config's to 0.95, as
+    in the JAX package."""
+
+    kmer_size: int = 15                # -k
+    window_size: int = 15              # -w
+    hash_representations: bool = True
+    filtering_parameter: float = 1.0   # -F: drop reps with freq > F (1.0 = off)
+    min_residues: int = 4              # min anchors per overlap
+    min_overlap_len: int = 50
+    min_bases_per_residue: int = 100
+    min_overlap_fraction: float = 0.95
+    max_anchor_gap: int = 5000         # chain trigger: max (qpos,tpos) step
+    index_size_mb: int = 30            # -i/-t batching budget (MB of bases)
+    skip_self_mappings: bool = True
+
+    def __post_init__(self):
+        # hashed mode packs 2k bits into one 64-bit word then mixes to a
+        # 32-bit representation (ops/sketch.py) -> k up to 31; unhashed mode
+        # stores the packed k-mer itself as a 32-bit value -> k <= 15.
+        if self.hash_representations:
+            if not (1 <= self.kmer_size <= 31):
+                raise ValueError("kmer_size must be in [1, 31]")
+        elif not (1 <= self.kmer_size <= 15):
+            raise ValueError(
+                "kmer_size must be in [1, 15] when hash_representations "
+                "is off (32-bit unhashed representations)")

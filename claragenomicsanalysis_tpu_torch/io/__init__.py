@@ -1,2 +1,2 @@
-"""Input parsing of the port (copies of the pure-Python FASTA/FASTQ parser
-and the POA window files of ``claragenomicsanalysis_tpu.io``)."""
+"""Input and output of the port (copies of the pure-Python FASTA/FASTQ
+parser, the POA window files and PAF of ``claragenomicsanalysis_tpu.io``)."""

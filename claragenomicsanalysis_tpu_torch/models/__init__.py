@@ -1,2 +1,2 @@
-"""The port's model layer: the batched pairwise aligner and POA
-consensus."""
+"""The port's model layer: the batched pairwise aligner, POA consensus and
+the overlap mapper."""

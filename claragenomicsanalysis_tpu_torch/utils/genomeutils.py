@@ -1,4 +1,4 @@
-"""Sequence encoding (copy of the encoding part of
+"""Sequence encoding and reverse complement (copies from
 ``claragenomicsanalysis_tpu/utils/genomeutils.py``) and the packing of pairs
 into the kernels' arrays.
 
@@ -47,6 +47,11 @@ def decode(codes: np.ndarray, length: int | None = None) -> str:
     out = _DEC[np.clip(codes, 0, 3).astype(np.intp)]
     out = np.where(codes >= 0, out, np.uint8(ord("N")))
     return out.tobytes().decode()
+
+
+def reverse_complement(seq: str) -> str:
+    comp = str.maketrans("ACGTacgt", "TGCAtgca")
+    return seq.translate(comp)[::-1]
 
 
 def pack_pairs(queries: list[str], targets: list[str], Lq: int, Lt: int):

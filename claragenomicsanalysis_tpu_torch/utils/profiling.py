@@ -12,27 +12,84 @@ block.
 Outside such a block :func:`kernel_span` records nothing; inside it, each
 launch costs two event records on the launching stream, and the block keeps
 the inputs of each kernel's largest launch alive until it ends.
+
+A ``stage_times()`` block does the same for the stages named by
+:func:`trace_range` (the mapper's ``mapper.*`` ranges): each range entered
+in it records a CUDA event at its start and end on the current stream, so
+``st.ms()`` gives each stage's device-stream time, and the host clock
+around it, so ``st.host_ms()`` gives its wall time on the host.
 """
 
 import contextlib
+import time
 
 import torch
 
 _collector = None       # the KernelTimes of the open kernel_times() block
+_stages = None          # the StageTimes of the open stage_times() block
 
 
 @contextlib.contextmanager
 def trace_range(name: str):
-    """Push an NVTX range named ``name`` for the body when CUDA is in use;
-    do nothing otherwise."""
+    """Push an NVTX range named ``name`` for the body when CUDA is in use
+    (and time it by CUDA events inside a ``stage_times()`` block); do
+    nothing otherwise."""
     if not torch.cuda.is_available():
         yield
         return
     torch.cuda.nvtx.range_push(name)
+    stages = _stages
+    if stages is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
     try:
         yield
     finally:
+        if stages is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            stages.events.setdefault(name, []).append((start, end))
+            stages.host_s[name] = (stages.host_s.get(name, 0.0)
+                                   + time.perf_counter() - t0)
         torch.cuda.nvtx.range_pop()
+
+
+class StageTimes:
+    """Start and end CUDA events of every trace_range entered, and its
+    host seconds, by name."""
+
+    def __init__(self):
+        self.events: dict[str, list] = {}
+        self.host_s: dict[str, float] = {}
+
+    def host_ms(self) -> dict[str, float]:
+        """Total host milliseconds inside each range, by name."""
+        return {name: s * 1e3 for name, s in self.host_s.items()}
+
+    def ms(self) -> dict[str, float]:
+        """Total milliseconds between each range's events, by name;
+        synchronizes the card."""
+        torch.cuda.synchronize()
+        return {name: sum(s.elapsed_time(e) for s, e in pairs)
+                for name, pairs in self.events.items()}
+
+    def count(self) -> dict[str, int]:
+        return {name: len(pairs) for name, pairs in self.events.items()}
+
+
+@contextlib.contextmanager
+def stage_times():
+    """Time every trace_range entered in the body by CUDA events; yields a
+    StageTimes."""
+    global _stages
+    if _stages is not None:
+        raise RuntimeError("stage_times() blocks do not nest")
+    _stages = StageTimes()
+    try:
+        yield _stages
+    finally:
+        _stages = None
 
 
 class KernelTimes:

@@ -165,8 +165,9 @@ def test_cli_align_golden_on_cpu():
 
 
 #: imports every module of the port, runs its CPU path through all four
-#: algorithms (banded-escalate through both banded-NW kernels) and POA
-#: consensus, and fails if any module of the JAX package or jax got loaded
+#: algorithms (banded-escalate through both banded-NW kernels), POA
+#: consensus and the mapper, and fails if any module of the JAX package or
+#: jax got loaded
 NO_JAX_PROBE = """
 import contextlib, io, pkgutil, sys, importlib
 import claragenomicsanalysis_tpu_torch as port
@@ -184,6 +185,8 @@ with contextlib.redirect_stdout(io.StringIO()):
                      "2", "--device", "cpu"]) == 0
     assert cli.main(["poa", f"{data}/sample-windows.txt", "--max-windows",
                      "2", "--msa", "--device", "cpu"]) == 0
+    assert cli.main(["map", f"{data}/sample_reads.fasta", "--device",
+                     "cpu"]) == 0
 from claragenomicsanalysis_tpu_torch import create_batch
 b = create_batch(max_poas=1, device="cpu", kernel="window", output_mask=3)
 b.add_poa_group(["ACGT", "AGT"])

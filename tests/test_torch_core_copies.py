@@ -175,3 +175,112 @@ def test_directed_graph_equal():
     assert ours.edge_weight(1, 0) == theirs.edge_weight(1, 0) == 0
     assert graph.DirectedGraph().serialize_to_dot() == \
         jax_graph.DirectedGraph().serialize_to_dot()
+
+
+def _mapper_copy_mapper_config():
+    from claragenomicsanalysis_tpu.core.config import MapperConfig as Theirs
+    from claragenomicsanalysis_tpu_torch.core.config import MapperConfig
+    assert vars(MapperConfig()) == vars(Theirs())
+    kw = dict(kmer_size=31, window_size=7, filtering_parameter=0.01,
+              min_overlap_fraction=0.3, index_size_mb=3)
+    assert vars(MapperConfig(**kw)) == vars(Theirs(**kw))
+    for bad in (dict(kmer_size=0), dict(kmer_size=32),
+                dict(kmer_size=16, hash_representations=False)):
+        for cls in (MapperConfig, Theirs):
+            with pytest.raises(ValueError):
+                cls(**bad)
+    assert MapperConfig(kmer_size=15, hash_representations=False)
+
+
+def _mapper_copy_types():
+    from claragenomicsanalysis_tpu.core import types as theirs
+    from claragenomicsanalysis_tpu_torch.core import types as ours
+    assert ours.SketchElement(5, 1, 2, 1) == ours.SketchElement(5, 1, 2, 1)
+    assert vars(ours.Anchor(1, 2, 3, 4)) == vars(theirs.Anchor(1, 2, 3, 4))
+    for strand in "+-":
+        a = ours.Overlap(3, 1, 10, 90, 7, 88, 9, strand, "4M")
+        b = theirs.Overlap(3, 1, 10, 90, 7, 88, 9, strand, "4M")
+        assert vars(a) == vars(b) and a.key() == b.key()
+
+
+def _mapper_copy_paf(tmp_path):
+    from claragenomicsanalysis_tpu.core.types import Overlap as TheirOverlap
+    from claragenomicsanalysis_tpu.io import paf as theirs
+    from claragenomicsanalysis_tpu_torch.core.types import Overlap
+    from claragenomicsanalysis_tpu_torch.io import paf as ours
+    for cigar in ("", "10M2I3D"):
+        args = (0, 1, 5, 400, 20, 430, 12, "-", cigar)
+        row = ours.format_paf_row(Overlap(*args), "q", 500, "t", 600)
+        assert row == theirs.format_paf_row(TheirOverlap(*args), "q", 500,
+                                            "t", 600)
+        ours.write_paf([row, "short\tline"], str(tmp_path / "o.paf"))
+        theirs.write_paf([row, "short\tline"], str(tmp_path / "t.paf"))
+        assert (tmp_path / "o.paf").read_bytes() == \
+            (tmp_path / "t.paf").read_bytes()
+        assert ours.read_paf(str(tmp_path / "o.paf")) == \
+            theirs.read_paf(str(tmp_path / "t.paf"))
+
+
+def _mapper_copy_get_chunks(tmp_path):
+    path = tmp_path / "r.fa"
+    path.write_text("".join(f">r{i}\n{'ACGT' * (i % 7 + 1)}\n"
+                            for i in range(40)))
+    for min_len, shuffle in ((0, False), (9, False), (0, True), (12, True)):
+        ours = fasta.create_fasta_parser(path, min_len, shuffle)
+        theirs = jax_fasta.FastaParser(str(path), min_len, shuffle)
+        n = theirs.get_num_sequences()
+        assert ours.get_num_seqences() == n
+        assert [ours.get_sequence_by_id(i) == fasta.FastaSequence(
+            *vars(theirs.get_sequence_by_id(i)).values())
+            for i in range(n)] == [True] * n
+        for budget in (1, 20, 64, 10**6):
+            for first, past in ((0, None), (3, n - 2)):
+                assert ours.get_chunks(budget, first, past) == \
+                    theirs.get_chunks(budget, first, past)
+    recs = [fasta.FastaSequence("a", "ACG"), fasta.FastaSequence("b", "A")]
+    mem = fasta.FastaParser("<mem>", min_seq_len=2, records=recs)
+    assert mem.get_num_sequences() == 1 and mem.get_chunks(5) == [(0, 1)]
+
+
+def _mapper_copy_reverse_complement():
+    for s in ("", "ACGTN", "acgtRYacgT", bytes(range(32, 127)).decode()):
+        assert genomeutils.reverse_complement(s) == \
+            jax_genomeutils.reverse_complement(s)
+
+
+def _mapper_copy_simulators():
+    from claragenomicsanalysis_tpu import simulators as theirs
+    from claragenomicsanalysis_tpu_torch import simulators as ours
+    for seed in (0, 11):
+        g = ours.PoissonGenomeSimulator(seed).build_reference(3000)
+        assert g == theirs.PoissonGenomeSimulator(seed).build_reference(3000)
+        assert ours.MarkovGenomeSimulator(seed).build_reference(500) == \
+            theirs.MarkovGenomeSimulator(seed).build_reference(500)
+        a = ours.NoisyReadSimulator(seed, 0.05).generate_reads(g, 12, 400)
+        b = theirs.NoisyReadSimulator(seed, 0.05).generate_reads(g, 12, 400)
+        assert [vars(r) for r in a] == [vars(r) for r in b]
+
+
+def _mapper_copy_index_store_key():
+    from claragenomicsanalysis_tpu.core.config import MapperConfig as Theirs
+    from claragenomicsanalysis_tpu.parallel import index_store as theirs
+    from claragenomicsanalysis_tpu_torch.core.config import MapperConfig
+    from claragenomicsanalysis_tpu_torch.parallel import index_store as ours
+    path = os.path.join(ROOT, "data", "sample_reads.fasta")
+    op, tp = fasta.create_fasta_parser(path), jax_fasta.FastaParser(path)
+    for kw in ({}, dict(kmer_size=19, window_size=5,
+                        hash_representations=True, filtering_parameter=0.5)):
+        for first, past in ((0, 16), (3, 7)):
+            assert ours.index_key(op, first, past, MapperConfig(**kw)) == \
+                theirs.index_key(tp, first, past, Theirs(**kw))
+
+
+@pytest.mark.parametrize("copy", [
+    "mapper_config", "types", "paf", "get_chunks", "reverse_complement",
+    "simulators", "index_store_key"])
+def test_mapper_copies_equal(copy, tmp_path):
+    """The mapper slice's copies: MapperConfig, the record types, io/paf,
+    the parser's filtering, shuffle and get_chunks, reverse_complement, the
+    simulators on a seed and the index store's content key."""
+    fn = globals()[f"_mapper_copy_{copy}"]
+    fn(tmp_path) if fn.__code__.co_argcount else fn()
