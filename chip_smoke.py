@@ -124,18 +124,39 @@ Phases, one line or more each:
      timed run: Mbp/s, overlaps/s, statuses, anchors, peak device memory,
      each ``mapper.*`` stage's CUDA-event and host time, the host share,
      and the two largest host parts re-run alone (the reads' simulation is
-     set-up, outside the wall).
+     set-up, outside the wall);
+ 21. the overlap -> CIGAR pipeline: ``cli pipeline --device cuda`` against
+     its golden, byte for byte; then its main path at full size,
+     ``run_pipeline(..., device="cuda")`` on scripts/bench_correct_scale.py's
+     default reads (1,000 x 5 kb at 5 %, 10x of a 500 kb genome; its
+     mapper settings, PipelineConfig's defaults): CIGAR'd alignments/s and
+     Mbp/s end to end, failures, each stage's CUDA-event and host time,
+     the kernel share and peak device memory; every CIGAR against its
+     spans, the rows without cg:Z against map_all_vs_all's, 64 spans
+     through the CPU plain path, recall and precision by evaluate_paf;
+ 22. read correction: ``cli correct --device cuda`` (both POA routes)
+     against its golden; then its main path, ``correct_reads(...,
+     device="cuda")`` on phase 21's reads at bench_correct_scale.py's
+     CorrectConfig: corrected bases/s, windows polished / total / failed,
+     each stage's CUDA-event and host time and host share, the mean edit
+     distance to each read's true span before and after (by the Myers
+     kernel); then a run stopped after one part and resumed, on the reads
+     of the genome's first 64 kb, equal to the uninterrupted run, and
+     those reads at cli correct's max_support of 15, B5 held against its
+     plain version at its deepest launch (16 pred slots, N = 384).
 Then a line per redesigned kernel (B1-B10) with its time
 at each main path's largest launch beside the first design's as PERF.md
 records it (FIRST_DESIGN_MS, not measured by this run) and its bound, and a
 line per variant of phases 2, 3, 6, 15, 17 and 18.  Then one JSON line
 describing every kernel: under ``paths``, for each main path (``ukkonen``,
 ``myers``, ``poa``, ``poa_deep``, ``poa_msa``, ``poa_window``,
-``poa_window_msa``, ``poa_window_deep``, ``ukkonen_row``), its launches in
-that run (counts zeroed just before it, read just after), the kernel's
-device time in that run (``run_ms``) and, at that path's largest launch,
-the plan it took and the kernel's time, plain time and bound (the least
-time the card could take for the same work); under ``variants`` the
+``poa_window_msa``, ``poa_window_deep``, ``ukkonen_row``, ``pipeline``,
+``correct``), its launches in that run (counts zeroed just before it, read
+just after), the kernel's device time in that run (``run_ms``) and, at
+that path's largest launch, the plan it took and the kernel's time, plain
+time and bound (the least time the card could take for the same work; at
+``pipeline`` and ``correct`` for the kernel that spent the most device
+time there); under ``variants`` the
 figures of phases 2, 3, 6, 15, 17 and 18 and of the B2 launches replayed in
 the other plan (every number in the line measured by this run, but the
 bounds, which it computes); at the top level the sum of the launches, the
@@ -2221,40 +2242,58 @@ def poa_plan(k: str, args) -> str:
         W, N, P, state.alig.shape[2], *state.paths.shape[1:])))
 
 
+#: where each lockstep kernel's arguments hold the window's pred table
+POA_PRED_ARG = {"poa_topsort": lambda a: a[2], "poa_nwtb": lambda a: a[6],
+                "poa_add": lambda a: a[0].pred,
+                "poa_consensus": lambda a: a[1],
+                "poa_msa": lambda a: a[0].pred}
+
+
+def replay_poa_kernel(tag: str, k: str, args, sm_mhz: float,
+                      shape: str | None = None) -> dict:
+    """Lockstep kernel ``k`` on ``args`` (a launch's inputs) against its
+    plain version, exactly, with its time (mean of 5 launches), the plain
+    version's (one call) and its bound; ``shape`` names the launch (by
+    default its windows, nodes and pred slots).  -> figures."""
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    name, plain, work = POA_STEPS[k]
+    kernel, plain = getattr(poa_window, name), getattr(poa_window, plain)
+    ms, out_k = cuda_ms(lambda: kernel(*args), 5)
+    ms_p, out_p = cuda_ms(lambda: plain(*args), 1)
+    err = maxdiff(out_k, out_p)
+    ops, nbytes, what = work(args, out_k)
+    b = bound(ops, nbytes, sm_mhz)
+    if shape is None:
+        W, N, P = POA_PRED_ARG[k](args).shape
+        shape = f"W={W} N={N} P={P}"
+    plan = poa_plan(k, args)
+    print(f"{tag} {k} ({plan}) replayed at its largest launch ({shape}): "
+          f"kernel {ms:.3f} ms vs plain {ms_p:.1f} ms, max diff {err}; bound "
+          f"{what}, {ops} int32 ops, {nbytes} B -> {b[0]:.4f} ms ({b[1]})")
+    check(err == 0, f"{tag}: {k} disagrees with its plain version at its "
+          f"largest launch")
+    return {"shape": shape, "plan": plan, "ms": ms, "plain_ms": ms_p,
+            "bound": b, "err": err}
+
+
 def replay_poa_kernels(tag: str, kt, launches: dict, dev_ms: dict, bs,
                        sm_mhz: float) -> dict:
     """Each lockstep kernel at its largest launch of a run against its
-    plain version, exactly, with its time (mean of 5 launches), the plain
-    version's (one call) and its bound.  -> kernel name -> figures."""
-    import torch
-    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    plain version (replay_poa_kernel).  -> kernel name -> figures."""
     N, L = bs.padded_nodes, bs.padded_seq
     per = {}
-    for k, (name, plain, work) in POA_STEPS.items():
+    for k in POA_STEPS:
         if not launches[k]:
             continue
         args = kt.largest[k]
-        kernel, plain = getattr(poa_window, name), getattr(poa_window, plain)
-        ms, out_k = cuda_ms(lambda: kernel(*args), 5)
-        ms_p, out_p = cuda_ms(lambda: plain(*args), 1)
-        err = maxdiff(out_k, out_p)
-        ops, nbytes, what = work(args, out_k)
-        b = bound(ops, nbytes, sm_mhz)
+        W = POA_PRED_ARG[k](args).shape[0]
         each = [s.elapsed_time(e) for s, e in kt.events[k]]
-        W = args[0].shape[0] if torch.is_tensor(args[0]) else \
-            args[0].base.shape[0]
-        shape = f"W={W} N={N} L={L} P={bs.max_pred_per_node}"
-        plan = poa_plan(k, args)
-        print(f"{tag} {k} ({plan}): {launches[k]} launches, {dev_ms[k]:.3f} ms in "
-              f"the run (largest launch {max(each):.3f} ms by its events); "
-              f"replayed at the largest launch ({shape}): kernel {ms:.3f} ms "
-              f"vs plain {ms_p:.1f} ms, max diff {err}; bound {what}, "
-              f"{ops} int32 ops, {nbytes} B -> {b[0]:.4f} ms ({b[1]})")
-        check(err == 0, f"{tag}: {k} disagrees with its plain version at its "
-              f"largest launch")
-        per[k] = {"shape": shape, "plan": plan, "ms": ms, "plain_ms": ms_p,
-                  "bound": b, "err": err, "launches": launches[k],
-                  "run_ms": dev_ms[k]}
+        print(f"{tag} {k}: {launches[k]} launches, {dev_ms[k]:.3f} ms in the "
+              f"run (largest launch {max(each):.3f} ms by its events)")
+        per[k] = replay_poa_kernel(
+            tag, k, args, sm_mhz,
+            f"W={W} N={N} L={L} P={bs.max_pred_per_node}") | {
+            "launches": launches[k], "run_ms": dev_ms[k]}
     return per
 
 
@@ -2762,6 +2801,419 @@ def phase_map_main() -> dict:
     return out
 
 
+#: the compositions' mapper settings, MAP_ARGS as a MapperConfig
+#: (scripts/bench_correct_scale.py's: k 15, w 5, min overlap 100, fraction
+#: 0.3, 500 bases a residue)
+COMPOSITION_MAPPER = dict(kmer_size=15, window_size=5, min_overlap_len=100,
+                          min_overlap_fraction=0.3, min_bases_per_residue=500)
+N_SPANS_PLAIN = 64       # phase 21's spans re-aligned on the CPU
+REGION_BASES = 64_000    # phase 22's genome stretch of the resumed run
+
+
+def composition_reads():
+    """scripts/bench_correct_scale.py's default read set: 1,000 reads of
+    5 kb at 5 % error, both strands, from a 500 kb genome (10x), by the
+    port's simulators.  -> (parser, reads, genome)."""
+    from claragenomicsanalysis_tpu_torch.io.fasta import (FastaParser,
+                                                          FastaSequence)
+    from claragenomicsanalysis_tpu_torch.simulators import (
+        NoisyReadSimulator, PoissonGenomeSimulator)
+    genome = PoissonGenomeSimulator(seed=13).build_reference(500_000)
+    reads = NoisyReadSimulator(seed=13, error_rate=0.05).generate_reads(
+        genome, 1000, 5000)
+    return (FastaParser("<mem>", records=[FastaSequence(r.name, r.seq)
+                                          for r in reads]), reads, genome)
+
+
+def cli_golden(tag: str, argv: list, golden: str) -> None:
+    """The port's CLI on ``argv`` byte for byte against a golden file."""
+    from claragenomicsanalysis_tpu_torch import cli
+    with open(os.path.join(ROOT, "data", "golden", golden)) as f:
+        want = f.read()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(argv)
+    same = rc == 0 and buf.getvalue() == want
+    print(f"{tag} golden: cli {argv[0]} {' '.join(argv[2:])} vs "
+          f"data/golden/{golden}: {'identical' if same else 'DIFFERENT'} "
+          f"({len(want.splitlines())} lines)")
+    check(same, f"{tag}: cli {argv[0]} differs from {golden}")
+
+
+def run_path(fn):
+    """``fn()`` as a main path: launch counts zeroed just before and read
+    just after, every kernel launch and trace_range timed by CUDA events,
+    the host clock around it ending in a sync.  -> dict(out, wall, launches,
+    kt, st, peak)."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.utils.profiling import (kernel_times,
+                                                                 stage_times)
+    settle_heap()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    zero_hirschberg()
+    t0 = time.perf_counter()
+    with kernel_times() as kt, stage_times() as st:
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches(ALIGNER_KERNELS + POA_KERNELS)
+    check(kt.count() == {k: v for k, v in launches.items() if v},
+          f"timed launches {kt.count()} != counted {launches}")
+    return dict(out=out, wall=wall, launches=launches, kt=kt, st=st,
+                peak=torch.cuda.max_memory_allocated(),
+                hirschberg=read_hirschberg())
+
+
+def path_kernels(tag: str, run: dict, sm_mhz: float) -> dict:
+    """A path's kernels line entries: each launched kernel's launches and
+    device time in the run, and each replayed at its largest launch there
+    against its plain version, with its time and bound (the banded NW with
+    its decoder on the NW's traceback).  Names the kernel that spent the
+    most device time in the run."""
+    kt, launches = run["kt"], run["launches"]
+    dev_ms = kt.ms()
+    per = {k: {"launches": n, "run_ms": dev_ms.get(k, 0.0)}
+           for k, n in launches.items() if n}
+    print(f"{tag} kernels in the run (CUDA events): " + ", ".join(
+        f"{k} {v['launches']} launches {v['run_ms']:.3f} ms"
+        for k, v in per.items())
+        + f"; most device time: {max(dev_ms, key=dev_ms.get)}")
+    figs = {}
+    if "nw_diag" in per:
+        figs |= time_banded(*kt.largest["nw_diag"], sm_mhz,
+                            f"{tag} largest B1 launch:")
+    if "myers" in per:
+        figs["myers"] = time_myers(*kt.largest["myers"], sm_mhz)
+        m = figs["myers"]
+        print(f"{tag} myers replayed at its largest launch ({m['shape']}): "
+              f"kernel {m['ms']:.3f} ms vs plain {m['plain_ms']:.1f} ms, max "
+              f"diff {m['err']}; bound {m['bound'][0]:.4f} ms "
+              f"({m['bound'][1]})")
+        check(m["err"] == 0, f"{tag}: myers disagrees with its plain "
+              f"version at its largest launch")
+    for k in POA_STEPS:
+        if k in per:
+            figs[k] = replay_poa_kernel(tag, k, kt.largest[k], sm_mhz)
+    check(set(figs) == set(per), f"{tag}: no replay for "
+          f"{set(per) - set(figs)}")
+    for k, v in figs.items():
+        per[k].update({f: v[f] for f in ("shape", "plan", "ms", "plain_ms",
+                                         "bound", "err")})
+    kt.largest.clear()
+    return per
+
+
+def deepest_nwtb(fn):
+    """``fn()`` with the lockstep route's graph-NW calls watched: -> (its
+    result, the inputs of the B5 launch with the most pred slots, of those
+    the most windows still adding a sequence, the latest of equal ones).
+    Each call syncs to count its windows."""
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    nwtb = poa_window.graph_nw_traceback
+    kept = {"key": (-1, -1), "args": None}
+
+    def watched(*args):
+        key = (args[6].shape[2], int(args[9].sum()))
+        if key >= kept["key"]:
+            kept.update(key=key, args=args)
+        return nwtb(*args)
+
+    poa_window.graph_nw_traceback = watched
+    try:
+        out = fn()
+    finally:
+        poa_window.graph_nw_traceback = nwtb
+    return out, kept["args"]
+
+
+def stage_lines(tag: str, run: dict, names) -> dict:
+    """Each named trace_range's CUDA-event ms, host ms and entries in the
+    run, printed; -> {name: (event ms, host ms, entries)}."""
+    ms, host, calls = run["st"].ms(), run["st"].host_ms(), run["st"].count()
+    out = {k: (ms[k], host[k], calls[k]) for k in names if k in ms}
+    print(f"{tag} stages (CUDA events / host ms, entries): " + ", ".join(
+        f"{k} {a:.3f} / {b:.3f} ({c})" for k, (a, b, c) in out.items()))
+    print(f"{tag} the other ranges inside them, by host ms: " + ", ".join(
+        f"{k} {ms[k]:.1f} / {host[k]:.1f} ({calls[k]})" for k in sorted(
+            set(ms) - set(out), key=lambda k: -host[k])))
+    return out
+
+
+def phase_pipeline(parser, reads, sm_mhz: float) -> dict:
+    """Phase 21: ``cli pipeline --device cuda`` against the golden, then
+    the pipeline main path, ``run_pipeline(..., device="cuda")`` on the
+    composition reads at PipelineConfig's defaults (band radius 256, spans
+    up to 16,384) with its checks, rates, stages, kernels and recall.
+    -> the path's kernels line entries."""
+    import re
+    import numpy as np
+    from claragenomicsanalysis_tpu_torch.core.config import (MapperConfig,
+                                                             PipelineConfig)
+    from claragenomicsanalysis_tpu_torch.core.status import StatusType
+    from claragenomicsanalysis_tpu_torch.evaluation import (TruthRecord,
+                                                            evaluate_paf)
+    from claragenomicsanalysis_tpu_torch.models import aligner, mapper
+    from claragenomicsanalysis_tpu_torch.models import pipeline as pl
+    data = os.path.join(ROOT, "data")
+    cli_golden("phase 21", ["pipeline", f"{data}/sample_reads.fasta"]
+               + MAP_ARGS + ["--band-radius", "256", "--device", "cuda"],
+               "sample_pipeline.paf")
+    cfg = PipelineConfig(mapper=MapperConfig(**COMPOSITION_MAPPER))
+    # the host seconds of the CIGAR strings, summed inside the run
+    to_cigar, cigar_s = aligner.Alignment.convert_to_cigar, [0.0]
+
+    def timed_cigar(self, extended=False):
+        t0 = time.perf_counter()
+        out = to_cigar(self, extended)
+        cigar_s[0] += time.perf_counter() - t0
+        return out
+
+    aligner.Alignment.convert_to_cigar = timed_cigar
+    try:
+        run = run_path(lambda: pl.run_pipeline(parser, cfg, device="cuda"))
+    finally:
+        aligner.Alignment.convert_to_cigar = to_cigar
+    res, wall = run["out"], run["wall"]
+    launches = run["launches"]
+    check(all(launches[k] > 0 for k in ("myers", "nw_diag", "tb_decode"))
+          and not any(launches[k] for k in POA_KERNELS + ("nw_row",
+                                                          "tb_decode_row")),
+          f"phase 21: the pipeline's kernels were not all launched, or "
+          f"others were: {launches}")
+    n = len(res.overlaps)
+    spans = pl.overlap_spans(res.overlaps, parser)
+    bases = sum(len(q) + len(t) for q, t in spans)
+    buckets = pl.span_buckets(spans)
+    dev_ms = run["kt"].ms()
+    busy = sum(dev_ms.values())
+    print(f"phase 21 pipeline main path ({len(reads)} reads x 5 kb, "
+          f"PipelineConfig defaults): {n} overlaps aligned in {wall:.3f} s "
+          f"= {res.n_aligned / wall:.1f} CIGAR'd alignments/s = "
+          f"{bases / wall / 1e6:.3f} Mbp/s of spans (query + target) end to "
+          f"end; n_align_failed={res.n_align_failed}; span buckets "
+          f"{ {b: len(v) for b, v in sorted(buckets.items())} }; Hirschberg "
+          f"{run['hirschberg'][0]} pairs, {run['hirschberg'][1]} levels; "
+          f"kernel share {busy / (wall * 1e3):.4f} ({busy:.1f} ms); peak "
+          f"device memory {run['peak'] / 2**30:.3f} GiB")
+    stages = stage_lines("phase 21", run, (
+        "pipeline.map", "pipeline.align", "aligner.pack", "aligner.myers",
+        "aligner.myers.score", "aligner.myers.banded", "aligner.hirschberg"))
+    top_ms = sum(stages[k][0] for k in ("pipeline.map", "pipeline.align"))
+    print(f"phase 21 host share: wall {wall * 1e3:.1f} ms, top-level ranges "
+          f"{top_ms:.1f} ms by their events; kernels {busy:.1f} ms, so "
+          f"{1 - busy / (wall * 1e3):.4f} of the wall is host work or torch "
+          f"ops outside the hand-written kernels; the CIGAR strings "
+          f"{cigar_s[0] * 1e3:.1f} ms of pipeline.align's host time")
+    check(res.n_align_failed == 0 and res.n_aligned == n > 0,
+          f"phase 21: {res.n_align_failed} of {n} alignments failed")
+    # every CIGAR consumes its spans; the rows without cg:Z are the map's
+    for row in res.paf_rows:
+        cols = row.split("\t")
+        qc = tc = 0
+        for num, op in re.findall(r"(\d+)([MID])", cols[12][5:]):
+            qc += int(num) * (op in "MI")
+            tc += int(num) * (op in "MD")
+        check((qc, tc) == (int(cols[3]) - int(cols[2]),
+                           int(cols[8]) - int(cols[7])),
+              f"phase 21: a CIGAR does not consume its spans: {row[:80]}")
+    ref = mapper.map_all_vs_all(parser, cfg.mapper, device="cuda")
+    kept = [o for o in ref.overlaps
+            if pl.within_length(o, cfg.max_alignment_length)]
+    same_rows = ["\t".join(r.split("\t")[:12]) for r in res.paf_rows] == \
+        mapper.overlaps_to_paf(kept, parser)
+    # 64 spans, spread over the buckets, through the CPU plain path at
+    # their bucket's shape
+    order = np.argsort([max(len(q), len(t)) for q, t in spans], kind="stable")
+    pick = sorted(int(i) for i in order[np.linspace(
+        0, n - 1, min(N_SPANS_PLAIN, n)).astype(int)])
+    t0 = time.perf_counter()
+    cpu_same = True
+    for blen, idxs in pl.span_buckets([spans[i] for i in pick]).items():
+        al = aligner.create_aligner(blen, blen, len(idxs),
+                                    band_radius=min(cfg.aligner_band_radius,
+                                                    blen),
+                                    algorithm="myers", device="cpu")
+        for i in idxs:
+            al.add_alignment(*spans[pick[i]])
+        for i, a in zip(idxs, al.get_alignments()):
+            cpu_same &= (a.status == StatusType.SUCCESS
+                         and a.convert_to_cigar()
+                         == res.overlaps[pick[i]].cigar)
+    t_cpu = time.perf_counter() - t0
+    truth = {r.name: TruthRecord(r.name, r.reference_start, r.reference_end,
+                                 r.strand) for r in reads}
+    metrics = evaluate_paf(({"query_name": r.split("\t")[0],
+                             "target_name": r.split("\t")[5]}
+                            for r in res.paf_rows), truth)
+    print(f"phase 21 checks: every CIGAR consumes its spans; the rows "
+          f"without cg:Z equal map_all_vs_all's under the same filter: "
+          f"{same_rows}; {len(pick)} spans through the CPU plain path in "
+          f"{t_cpu:.1f} s give the same CIGARs: {cpu_same}; evaluate_paf "
+          f"against the reads' placements: {json.dumps(metrics)}")
+    check(same_rows, "phase 21: the pipeline's rows differ from the map's")
+    check(cpu_same, "phase 21: the CPU plain path gives other CIGARs")
+    check(metrics["precision"] > 0.95 and metrics["recall"] > 0.9,
+          f"phase 21: recall/precision {metrics}")
+    return path_kernels("phase 21", run, sm_mhz)
+
+
+def myers_distances(pairs) -> "np.ndarray":
+    """Edit distances of string pairs by the Myers kernel (B4) on the card,
+    128 pairs a launch."""
+    import numpy as np
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import myers
+    out = []
+    for s in range(0, len(pairs), 128):
+        arrays = pack(pairs[s:s + 128])
+        _, sc = myers.myers_bottom_row(*(torch.from_numpy(a).cuda()
+                                         for a in arrays))
+        out.append(sc.cpu().numpy())
+    return np.concatenate(out).astype(np.int64)
+
+
+def phase_correct(parser, reads, genome, sm_mhz: float) -> tuple:
+    """Phase 22: ``cli correct --device cuda`` against the golden (both POA
+    routes), then the correction main path, ``correct_reads(...,
+    device="cuda")`` on the composition reads at
+    scripts/bench_correct_scale.py's CorrectConfig (window 128,
+    max_support 7), with its rate, windows, stages and their host share,
+    kernels and the edit distance to each read's true span before and
+    after; then a run stopped after one part and resumed, on the reads of
+    the genome's first 64 kb, equal to the uninterrupted run; then those
+    reads at cli
+    correct's max_support of 15, B5 held against its plain version at its
+    deepest launch (16 pred slots).  -> the path's kernels line entries,
+    and B5's variant at cli correct's max_support."""
+    import shutil
+    from dataclasses import replace
+    from claragenomicsanalysis_tpu_torch.core.config import (CorrectConfig,
+                                                             MapperConfig)
+    from claragenomicsanalysis_tpu_torch.io.fasta import FastaParser
+    from claragenomicsanalysis_tpu_torch.models import correct
+    from claragenomicsanalysis_tpu_torch.utils.genomeutils import \
+        reverse_complement
+    data = os.path.join(ROOT, "data")
+    for extra in ([], ["--poa-backend", "pallas"]):
+        cli_golden("phase 22", ["correct", f"{data}/sample_reads.fasta"]
+                   + MAP_ARGS + extra + ["--device", "cuda"],
+                   "sample_corrected.fasta")
+    cfg = CorrectConfig(mapper=MapperConfig(**COMPOSITION_MAPPER))
+    run = run_path(lambda: correct.correct_reads(parser, cfg, device="cuda"))
+    res, wall = run["out"], run["wall"]
+    launches = run["launches"]
+    want = ("nw_diag", "tb_decode", "poa_topsort", "poa_nwtb", "poa_add",
+            "poa_consensus")
+    check(all(launches[k] > 0 for k in want) and not any(
+        launches[k] for k in ("nw_row", "tb_decode_row", "poa_msa",
+                              "poa_window")),
+          f"phase 22: the correction's kernels were not all launched, or "
+          f"others were: {launches}")
+    bases = sum(len(r.seq) for r in reads)
+    dev_ms = run["kt"].ms()
+    busy = sum(dev_ms.values())
+    print(f"phase 22 correct main path ({len(reads)} reads x 5 kb, "
+          f"window {cfg.window_length}, max_support {cfg.max_support}): "
+          f"{wall:.3f} s = {bases / wall:.1f} corrected bases/s end to end; "
+          f"windows polished {res.n_polished} / total {res.n_windows} / "
+          f"failed {res.n_window_failed}; Hirschberg {run['hirschberg'][0]} "
+          f"pairs; kernel share {busy / (wall * 1e3):.4f} ({busy:.1f} ms); "
+          f"peak device memory {run['peak'] / 2**30:.3f} GiB")
+    stages = stage_lines("phase 22", run, (
+        "correct.map", "correct.align", "correct.windows", "correct.poa",
+        "aligner.banded-escalate", "aligner.hirschberg", "poa.generate"))
+    map_dev = sum(v for k, v in run["st"].ms().items() if k in MAP_STAGES)
+    kernel_of = {"correct.map": map_dev,
+                 "correct.align": sum(dev_ms.get(k, 0.0)
+                                      for k in ALIGNER_KERNELS),
+                 "correct.windows": 0.0,
+                 "correct.poa": sum(dev_ms.get(k, 0.0) for k in POA_KERNELS)}
+    print("phase 22 host share per stage (1 - device ms / host ms; device: "
+          "the hand-written kernels, for correct.map the mapper.* ranges' "
+          "events): " + ", ".join(
+              f"{k} {1 - kernel_of[k] / max(stages[k][1], 1e-9):.4f} "
+              f"({kernel_of[k]:.1f} of {stages[k][1]:.1f} ms)"
+              for k in kernel_of if k in stages)
+          + f"; outside every correct.* range "
+          f"{wall * 1e3 - sum(stages[k][1] for k in kernel_of):.1f} ms")
+    check(res.n_polished > 0.5 * res.n_windows,
+          f"phase 22: only {res.n_polished} of {res.n_windows} windows "
+          f"polished")
+
+    def truth(r):
+        span = genome[r.reference_start:r.reference_end]
+        return reverse_complement(span) if r.strand == "-" else span
+    truths = [truth(r) for r in reads]
+    before = myers_distances([(r.seq, t) for r, t in zip(reads, truths)])
+    after = myers_distances(list(zip(res.seqs, truths)))
+    print(f"phase 22 quality: mean edit distance to the true span "
+          f"{before.mean():.2f} before, {after.mean():.2f} after (reduction "
+          f"{1 - after.sum() / max(before.sum(), 1):.4f}; by the Myers "
+          f"kernel on the card)")
+    check(after.mean() < before.mean(), "phase 22: correction did not "
+          "lower the mean edit distance to the truth")
+
+    # the reads that start in the genome's first 64 kb: the main path's
+    # coverage (10x) on a stretch of it
+    ids = [i for i, r in enumerate(reads) if r.reference_start < REGION_BASES]
+    sub = FastaParser("<mem>", records=[parser.get_sequence_by_id(i)
+                                        for i in ids])
+    whole = correct.correct_reads(sub, cfg, device="cuda")
+    work = os.path.join(ROOT, "build", "smoke_correct_work")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        correct.correct_reads(sub, cfg, work_dir=work, fail_after_parts=1,
+                              device="cuda")
+        stopped = False
+    except RuntimeError:
+        stopped = True
+    resumed = correct.correct_reads(sub, cfg, work_dir=work, device="cuda")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 22 resume: the {len(ids)} reads that start in the first "
+          f"{REGION_BASES} bases, in {-(-len(ids) // 64)} parts, stopped "
+          f"after one: {stopped}; resumed equals the uninterrupted run: "
+          f"{resumed == whole}")
+    check(stopped and resumed == whole, "phase 22: the resumed run differs")
+
+    # cli correct's max_support of 15: depth buckets up to 16 sequences,
+    # B5 at P = 16 and N = 384, held against its plain version there
+    deep_cfg = replace(cfg, max_support=15)
+    deep, args = deepest_nwtb(
+        lambda: correct.correct_reads(sub, deep_cfg, device="cuda"))
+    fig = replay_poa_kernel("phase 22 max_support 15", "poa_nwtb", args,
+                            sm_mhz)
+    print(f"phase 22 max_support 15 on the {len(ids)} reads: "
+          f"{deep.n_polished} / {deep.n_windows} windows polished, "
+          f"{deep.n_window_failed} failed; deepest B5 launch {fig['shape']}")
+    check(args[6].shape[2] == 16 and deep.n_polished > 0,
+          f"phase 22: no B5 launch at 16 pred slots ({fig['shape']})")
+    variant = {"variant": "phase 22 correct, max_support 15, deepest "
+                          "bucket", **fig}
+    return path_kernels("phase 22", run, sm_mhz), {"poa_nwtb": [variant]}
+
+
+def compositions_main() -> int:
+    """``--compositions``: phases 1, 21 and 22 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    sm_mhz = phase_env()
+    t0 = time.perf_counter()
+    parser, reads, genome = composition_reads()
+    print(f"phases 21-22 data: {len(reads)} reads, "
+          f"{sum(len(r.seq) for r in reads) / 1e6:.3f} Mbp, simulated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    paths = {"pipeline": phase_pipeline(parser, reads, sm_mhz)}
+    paths["correct"], variants = phase_correct(parser, reads, genome, sm_mhz)
+    print(json.dumps({"paths": paths, "variants": variants}, default=str))
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2814,10 +3266,17 @@ def main() -> int:
         for k, v in more.items():
             variants.setdefault(k, []).extend(v)
 
-    for k, v in FORCED_PLANS.items():
-        variants.setdefault(k, []).extend(v)
     phase_map_correctness()
     phase_map_main()
+    t0 = time.perf_counter()
+    parser, reads, genome = composition_reads()
+    print(f"phases 21-22 data: {len(reads)} reads, "
+          f"{sum(len(r.seq) for r in reads) / 1e6:.3f} Mbp, simulated in "
+          f"{time.perf_counter() - t0:.1f} s (not in the walls)")
+    paths["pipeline"] = phase_pipeline(parser, reads, sm_mhz)
+    paths["correct"], more = phase_correct(parser, reads, genome, sm_mhz)
+    for k, v in (FORCED_PLANS | more).items():
+        variants.setdefault(k, []).extend(v)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "claragenomicsanalysis_tpu")
@@ -4147,9 +4606,11 @@ if __name__ == "__main__":
                                                "map_profile.txt")))
     if len(sys.argv) == 3 and sys.argv[1] == "--turns":
         sys.exit(kernel_turns_main(sys.argv[2]))
+    if sys.argv[1:] == ["--compositions"]:
+        sys.exit(compositions_main())
     if len(sys.argv) > 1:
         sys.exit("usage: python3 chip_smoke.py [--nwtb-split | "
                  "--window-split | --add-split | --topsort-split | "
                  "--finish-split | --map-profile [OUT] | --turns "
-                 "PARENT_DIR]")
+                 "PARENT_DIR | --compositions]")
     sys.exit(main())

@@ -1,19 +1,26 @@
-"""Command-line interface of the port: the ``align``, ``poa`` and ``map``
-subcommands.
+"""Command-line interface of the port: align | poa | map | pipeline |
+correct | simulate | evaluate.
 
-Run as ``python -m claragenomicsanalysis_tpu_torch.cli align q.fa t.fa``,
-``... cli poa windows.txt [--msa]`` or ``... cli map reads.fa [targets.fa]``.
-Output and flags are those of the JAX package's ``cli align``, ``cli poa``
-and ``cli map``, plus ``--device {cuda,cpu}``; the JAX package's
-``-d/--devices`` mesh flag has no counterpart yet.
+Run as ``python -m claragenomicsanalysis_tpu_torch.cli <subcommand> ...``,
+e.g. ``... cli align q.fa t.fa``, ``... cli poa windows.txt [--msa]``,
+``... cli map reads.fa [targets.fa]``, ``... cli pipeline reads.fa``,
+``... cli correct reads.fa``.  Output and flags are those of the JAX
+package's CLI, the global ``--log-level``, ``--timings`` and
+``--profile-dir`` included, plus ``--device {cuda,cpu}`` on every
+subcommand that runs on a device (``simulate`` and ``evaluate`` do not);
+the JAX package's ``-d/--devices`` mesh flag has no counterpart yet.
 """
 
 import argparse
+import contextlib
+import json
+import os
 import sys
 
-from .core.config import BatchSize, MapperConfig
+from .core.config import BatchSize, MapperConfig, PipelineConfig
 from .core.status import OutputType, StatusType
 from .io.fasta import create_fasta_parser
+from .utils.logging import initialize_logger
 
 
 def cmd_align(args) -> int:
@@ -134,8 +141,101 @@ def cmd_map(args) -> int:
     return 0
 
 
+def cmd_evaluate(args) -> int:
+    """PAF-vs-truth recall and precision on simulated reads."""
+    from .evaluation import evaluate_paf, read_truth
+    from .io.paf import read_paf
+    truth = read_truth(args.truth)
+    metrics = evaluate_paf(read_paf(args.paf), truth,
+                           min_overlap_bases=args.min_overlap_bases)
+    print(json.dumps(metrics))
+    return 0
+
+
+def cmd_simulate(args) -> int:
+    """Synthetic genome and noisy-read FASTA generator."""
+    from .simulators import (MarkovGenomeSimulator, NoisyReadSimulator,
+                             PoissonGenomeSimulator)
+    sim = (MarkovGenomeSimulator(seed=args.seed) if args.markov
+           else PoissonGenomeSimulator(seed=args.seed))
+    genome = sim.build_reference(args.genome_length)
+    print(f">reference\n{genome}" if args.reads == 0 else "", end="")
+    if args.reads:
+        rsim = NoisyReadSimulator(seed=args.seed, error_rate=args.error_rate)
+        reads = rsim.generate_reads(genome, args.reads, args.read_length)
+        for r in reads:
+            print(f">{r.name}\n{r.seq}")
+        if args.reference_out:
+            with open(args.reference_out, "w") as f:
+                f.write(f">reference\n{genome}\n")
+        if args.truth_out:
+            from .evaluation import write_truth
+            write_truth(reads, args.truth_out)
+    return 0
+
+
+def cmd_correct(args) -> int:
+    """Read correction: all-vs-all map -> windowed POA polish -> corrected
+    FASTA to stdout (or --output)."""
+    from .core.config import CorrectConfig
+    from .models.correct import correct_reads, write_fasta
+    parser = create_fasta_parser(args.input)
+    cfg = CorrectConfig(mapper=_mapper_cfg(args),
+                        window_length=args.window_length,
+                        max_support=args.max_support,
+                        aligner_band_radius=args.band_radius,
+                        poa_backend=args.poa_backend)
+    res = correct_reads(parser, cfg, work_dir=args.work_dir or None,
+                        device=args.device)
+    if args.output:
+        write_fasta(res, args.output)
+    else:
+        for name, seq in zip(res.names, res.seqs):
+            print(f">{name}\n{seq}")
+    print(f"polished {res.n_polished}/{res.n_windows} windows "
+          f"({res.n_window_failed} kept backbone after POA failure)",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_pipeline(args) -> int:
+    from .models.pipeline import run_pipeline
+    parser = create_fasta_parser(args.input)
+    cfg = PipelineConfig(mapper=_mapper_cfg(args),
+                         aligner_band_radius=args.band_radius)
+    res = run_pipeline(parser, cfg, device=args.device)
+    for row in res.paf_rows:
+        print(row)
+    print(f"aligned {res.n_aligned} overlaps ({res.n_align_failed} failed)",
+          file=sys.stderr)
+    return 0
+
+
+def _run_profiled(fn, args, out_dir: str) -> int:
+    """``fn(args)`` under torch.profiler (the host, and the card when torch
+    finds one); the trace goes to ``out_dir``/trace.json (Chrome format)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        rc = fn(args)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    return rc
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="claragenomicsanalysis_tpu_torch")
+    ap.add_argument("--log-level", default="INFO")
+    ap.add_argument("--timings", action="store_true",
+                    help="print each stage's host seconds and entries as "
+                         "JSON to stderr at exit (on the card, not its "
+                         "device time)")
+    ap.add_argument("--profile-dir", default="",
+                    help="write a torch.profiler trace of the run here "
+                         "(trace.json, Chrome format)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     a = sub.add_parser("align", help="batched pairwise global alignment")
     a.add_argument("queries")
@@ -184,9 +284,86 @@ def main(argv=None) -> int:
     m.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where sketch, index, matching and chaining run")
     m.set_defaults(fn=cmd_map)
+
+    sm = sub.add_parser("simulate", help="synthetic genome / noisy reads")
+    sm.add_argument("--genome-length", type=int, default=100_000)
+    sm.add_argument("--reads", type=int, default=0,
+                    help="0 = emit the genome itself")
+    sm.add_argument("--read-length", type=int, default=5000)
+    sm.add_argument("--error-rate", type=float, default=0.05)
+    sm.add_argument("--seed", type=int, default=0)
+    sm.add_argument("--markov", action="store_true")
+    sm.add_argument("--reference-out", default="")
+    sm.add_argument("--truth-out", default="",
+                    help="write read placement truth TSV (for `evaluate`)")
+    sm.set_defaults(fn=cmd_simulate)
+
+    ev = sub.add_parser("evaluate",
+                        help="PAF recall/precision vs simulated-read truth")
+    ev.add_argument("truth", help="truth TSV from simulate --truth-out")
+    ev.add_argument("paf")
+    ev.add_argument("--min-overlap-bases", type=int, default=100)
+    ev.set_defaults(fn=cmd_evaluate)
+
+    pl = sub.add_parser("pipeline", help="map + align, PAF with CIGARs")
+    pl.add_argument("input")
+    _add_mapper_flags(pl)
+    pl.add_argument("--band-radius", type=int, default=256)
+    pl.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where mapping and alignment run (cuda: the "
+                         "hand-written kernels)")
+    pl.set_defaults(fn=cmd_pipeline)
+
+    co = sub.add_parser("correct",
+                        help="read correction: map + windowed POA polish")
+    co.add_argument("input")
+    _add_mapper_flags(co)
+    co.add_argument("--window-length", type=int, default=128,
+                    help="backbone window (bases)")
+    co.add_argument("--max-support", type=int, default=15,
+                    help="supporting segments per POA window")
+    co.add_argument("--band-radius", type=int, default=256,
+                    help="per-overlap re-alignment band radius")
+    co.add_argument("--work-dir", default="",
+                    help="checkpoint dir: run resumes after a crash")
+    co.add_argument("--poa-backend", default="auto",
+                    choices=("auto", "xla", "pallas", "pallas2"),
+                    help="POA kernels of the polish stage, the JAX "
+                         "package's names: pallas runs the one-kernel-per-"
+                         "window route (B10), auto, xla and pallas2 the "
+                         "lockstep kernels (B5-B8); the same result either "
+                         "way")
+    co.add_argument("-o", "--output", default="",
+                    help="corrected FASTA path (default: stdout)")
+    co.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where mapping, alignment and POA run (cuda: the "
+                         "hand-written kernels)")
+    co.set_defaults(fn=cmd_correct)
+
     args = ap.parse_args(argv)
-    return args.fn(args)
+    initialize_logger(args.log_level)
+    with contextlib.ExitStack() as stack:
+        if args.timings:
+            from .utils.profiling import stage_times
+            st = stack.enter_context(stage_times())
+        if args.profile_dir:
+            rc = _run_profiled(args.fn, args, args.profile_dir)
+        else:
+            rc = args.fn(args)
+    if args.timings:
+        print(json.dumps(st.timings()), file=sys.stderr)
+    return rc
+
+
+def _console_entry() -> None:
+    """The ``python -m`` entry point; exits quietly with 141 (128 +
+    SIGPIPE) when stdout's reader goes away (``... | head``)."""
+    try:
+        sys.exit(main())
+    except BrokenPipeError:
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        sys.exit(141)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    _console_entry()

@@ -1,8 +1,9 @@
-"""The aligner's, the POA batch's and the mapper's configurations (copies
-of ``AlignerConfig``, ``PoaScores``, ``BatchSize`` and ``MapperConfig`` from
+"""The configurations of the aligner, the POA batch, the mapper and the two
+compositions (copies of ``AlignerConfig``, ``PoaScores``, ``BatchSize``,
+``MapperConfig``, ``PipelineConfig`` and ``CorrectConfig`` from
 ``claragenomicsanalysis_tpu/core/config.py``)."""
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from ..utils.mathutils import round_up
 
@@ -96,3 +97,34 @@ class MapperConfig:
             raise ValueError(
                 "kmer_size must be in [1, 15] when hash_representations "
                 "is off (32-bit unhashed representations)")
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Overlap -> alignment pipeline (``cli pipeline``)."""
+
+    mapper: MapperConfig = field(default_factory=MapperConfig)
+    aligner_band_radius: int = 256
+    max_alignment_length: int = 16384
+
+
+@dataclass(frozen=True)
+class CorrectConfig:
+    """Read correction (``cli correct``): all-vs-all map -> per-overlap
+    base-exact alignment -> per-read pileup windows -> batched POA
+    consensus -> corrected reads.  ``max_support`` defaults to 7 here and
+    to 15 on ``cli correct --max-support``, as in the JAX package."""
+
+    mapper: MapperConfig = field(default_factory=MapperConfig)
+    window_length: int = 128          # backbone window (bases)
+    max_support: int = 7              # supporting segments per window
+    min_matched_bases: int = 8        # matched pairs a support must place
+    aligner_band_radius: int = 256    # per-overlap re-alignment band
+    max_alignment_length: int = 16384 # overlaps longer than this are skipped
+    # windows with fewer supports keep the backbone
+    min_supports_for_poa: int = 2
+    # POA kernels of the polish stage, the JAX package's four names:
+    # "pallas" runs models.poa's kernel="window" (B10), "auto", "xla" and
+    # "pallas2" its kernel="lockstep" (B5-B8); every choice gives the same
+    # result
+    poa_backend: str = "auto"

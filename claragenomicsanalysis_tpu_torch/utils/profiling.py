@@ -17,7 +17,9 @@ A ``stage_times()`` block does the same for the stages named by
 :func:`trace_range` (the mapper's ``mapper.*`` ranges): each range entered
 in it records a CUDA event at its start and end on the current stream, so
 ``st.ms()`` gives each stage's device-stream time, and the host clock
-around it, so ``st.host_ms()`` gives its wall time on the host.
+around it, so ``st.host_ms()`` gives its wall time on the host; on the
+CPU it keeps the host times alone (``st.timings()``, the CLI's
+``--timings``).
 """
 
 import contextlib
@@ -31,37 +33,42 @@ _stages = None          # the StageTimes of the open stage_times() block
 
 @contextlib.contextmanager
 def trace_range(name: str):
-    """Push an NVTX range named ``name`` for the body when CUDA is in use
-    (and time it by CUDA events inside a ``stage_times()`` block); do
-    nothing otherwise."""
-    if not torch.cuda.is_available():
-        yield
-        return
-    torch.cuda.nvtx.range_push(name)
+    """Push an NVTX range named ``name`` for the body when CUDA is in use,
+    and label it in a torch.profiler trace; inside a ``stage_times()``
+    block, add its host seconds and, with CUDA, its CUDA events."""
+    cuda = torch.cuda.is_available()
     stages = _stages
+    if cuda:
+        torch.cuda.nvtx.range_push(name)
     if stages is not None:
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
         t0 = time.perf_counter()
     try:
-        yield
+        with torch.profiler.record_function(name):
+            yield
     finally:
         if stages is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            stages.events.setdefault(name, []).append((start, end))
             stages.host_s[name] = (stages.host_s.get(name, 0.0)
                                    + time.perf_counter() - t0)
-        torch.cuda.nvtx.range_pop()
+            stages.calls[name] = stages.calls.get(name, 0) + 1
+            if cuda:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                stages.events.setdefault(name, []).append((start, end))
+        if cuda:
+            torch.cuda.nvtx.range_pop()
 
 
 class StageTimes:
-    """Start and end CUDA events of every trace_range entered, and its
-    host seconds, by name."""
+    """Host seconds and entries of every trace_range entered, and with
+    CUDA its start and end events, by name."""
 
     def __init__(self):
         self.events: dict[str, list] = {}
         self.host_s: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
 
     def host_ms(self) -> dict[str, float]:
         """Total host milliseconds inside each range, by name."""
@@ -75,13 +82,21 @@ class StageTimes:
                 for name, pairs in self.events.items()}
 
     def count(self) -> dict[str, int]:
-        return {name: len(pairs) for name, pairs in self.events.items()}
+        return dict(self.calls)
+
+    def timings(self) -> dict[str, dict[str, float]]:
+        """Host seconds and entries by range, in the JAX package's
+        ``stage_timings()`` layout (the CLI's ``--timings``).  On the card
+        a range's host time is not its device time: the kernels it
+        launches run on after it returns."""
+        return {k: {"total_s": self.host_s[k], "count": self.calls[k]}
+                for k in sorted(self.host_s)}
 
 
 @contextlib.contextmanager
 def stage_times():
-    """Time every trace_range entered in the body by CUDA events; yields a
-    StageTimes."""
+    """Time every trace_range entered in the body (host seconds, and CUDA
+    events where CUDA is in use); yields a StageTimes."""
     global _stages
     if _stages is not None:
         raise RuntimeError("stage_times() blocks do not nest")

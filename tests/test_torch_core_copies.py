@@ -284,3 +284,66 @@ def test_mapper_copies_equal(copy, tmp_path):
     simulators on a seed and the index store's content key."""
     fn = globals()[f"_mapper_copy_{copy}"]
     fn(tmp_path) if fn.__code__.co_argcount else fn()
+
+
+def _composition_copy_pipeline_config():
+    from claragenomicsanalysis_tpu.core.config import PipelineConfig as Theirs
+    from claragenomicsanalysis_tpu_torch.core.config import PipelineConfig
+    assert vars(PipelineConfig().mapper) == vars(Theirs().mapper)
+    ours, theirs = PipelineConfig(), Theirs()
+    assert (ours.aligner_band_radius, ours.max_alignment_length) == \
+        (theirs.aligner_band_radius, theirs.max_alignment_length)
+    assert [f for f in vars(ours)] == [f for f in vars(theirs)]
+
+
+def _composition_copy_correct_config():
+    from claragenomicsanalysis_tpu.core.config import CorrectConfig as Theirs
+    from claragenomicsanalysis_tpu_torch.core.config import CorrectConfig
+    for kw in ({}, dict(window_length=100, max_support=15,
+                        poa_backend="pallas", min_supports_for_poa=3)):
+        ours, theirs = CorrectConfig(**kw), Theirs(**kw)
+        a = {k: v for k, v in vars(ours).items() if k != "mapper"}
+        b = {k: v for k, v in vars(theirs).items() if k != "mapper"}
+        assert a == b and list(vars(ours)) == list(vars(theirs))
+        assert vars(ours.mapper) == vars(theirs.mapper)
+    assert CorrectConfig().max_support == 7      # the CLI's default is 15
+
+
+def _composition_copy_evaluation(tmp_path):
+    from claragenomicsanalysis_tpu import evaluation as theirs
+    from claragenomicsanalysis_tpu_torch import evaluation as ours
+    from claragenomicsanalysis_tpu_torch.simulators import (
+        NoisyReadSimulator, PoissonGenomeSimulator)
+    g = PoissonGenomeSimulator(6).build_reference(8000)
+    reads = NoisyReadSimulator(6, 0.05).generate_reads(g, 30, 700)
+    ours.write_truth(reads, str(tmp_path / "o.tsv"))
+    theirs.write_truth(reads, str(tmp_path / "t.tsv"))
+    assert (tmp_path / "o.tsv").read_bytes() == \
+        (tmp_path / "t.tsv").read_bytes()
+    with open(tmp_path / "o.tsv", "a") as f:
+        f.write("short\tline\n")
+    truth = ours.read_truth(str(tmp_path / "o.tsv"))
+    their_truth = theirs.read_truth(str(tmp_path / "o.tsv"))
+    assert {k: vars(v) for k, v in truth.items()} == \
+        {k: vars(v) for k, v in their_truth.items()}
+    for m in (1, 100, 400):
+        assert ours.true_pairs(truth, m) == theirs.true_pairs(their_truth, m)
+    rng = np.random.default_rng(6)
+    names = [r.name for r in reads]
+    paf = [{"query_name": names[a], "target_name": names[b]}
+           for a, b in rng.integers(0, len(names), (60, 2))]
+    for recs in (paf, [], paf[:1]):
+        for m in (50, 250):
+            assert ours.evaluate_paf(recs, truth, m) == \
+                theirs.evaluate_paf(recs, their_truth, m)
+    assert ours.evaluate_paf([], {}) == theirs.evaluate_paf([], {})
+
+
+@pytest.mark.parametrize("copy", ["pipeline_config", "correct_config",
+                                  "evaluation"])
+def test_composition_copies_equal(copy, tmp_path):
+    """The compositions' copies: PipelineConfig, CorrectConfig (both
+    max_support defaults) and evaluation.py (truth files, true pairs,
+    metrics)."""
+    fn = globals()[f"_composition_copy_{copy}"]
+    fn(tmp_path) if fn.__code__.co_argcount else fn()
