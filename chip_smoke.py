@@ -143,7 +143,27 @@ Phases, one line or more each:
      kernel); then a run stopped after one part and resumed, on the reads
      of the genome's first 64 kb, equal to the uninterrupted run, and
      those reads at cli correct's max_support of 15, B5 held against its
-     plain version at its deepest launch (16 pred slots, N = 384).
+     plain version at its deepest launch (16 pred slots, N = 384);
+ 23. the multi-rank paths (claragenomicsanalysis_tpu_torch/parallel/):
+     two ranks on cuda:0 (gloo, explicit devices), or one a card (NCCL)
+     where torch finds two, each its own process (multihost.run_ranks),
+     each rank's launch counts zeroed just before a path and read just
+     after: (a) phase 20's map at full width on the 'rep' axis, rows
+     equal to phase 20's, its wall, Mbp/s, each rank's stages, the
+     all_to_all's bytes and ms and peak memory; (b) phase 22's correction
+     on both views (map on 'rep', POA on 'data'), corrected reads equal to
+     phase 22's, corrected bases/s and each rank's kernel share; (c)
+     ``ukkonen`` on 'data' on phase 5's pairs (equal to phase 5), phase
+     12's windows on 'data' through both POA routes (equal to phase 12),
+     and ``hirschberg-myers`` on the 'sp' ring with its levels of 4,096
+     bases or more on the ring, on phase 7's 64-pair subset (paths equal
+     to phase 7's), with the ring's ms a level; (d) ``cli align | poa |
+     map | pipeline | correct -d 2 --device cuda``: byte-equal to the
+     goldens on two cards, the JAX message on one.  After each path of
+     (b) and (c) rank 0 replays each kernel it launched at its largest
+     launch against its plain version, at the shapes its share gave it.
+     ``python3 chip_smoke.py --multi-rank`` runs phases 1 and 23 alone,
+     with their own one-rank references.
 Then a line per redesigned kernel (B1-B10) with its time
 at each main path's largest launch beside the first design's as PERF.md
 records it (FIRST_DESIGN_MS, not measured by this run) and its bound, and a
@@ -151,7 +171,9 @@ line per variant of phases 2, 3, 6, 15, 17 and 18.  Then one JSON line
 describing every kernel: under ``paths``, for each main path (``ukkonen``,
 ``myers``, ``poa``, ``poa_deep``, ``poa_msa``, ``poa_window``,
 ``poa_window_msa``, ``poa_window_deep``, ``ukkonen_row``, ``pipeline``,
-``correct``), its launches in that run (counts zeroed just before it, read
+``correct``, and phase 23's ``correct_2ranks``, ``ukkonen_data2``,
+``poa_data2``, ``poa_window_data2`` and ``hirschberg_sp2``, launches and
+run time summed over the ranks, the replay rank 0's), its launches in that run (counts zeroed just before it, read
 just after), the kernel's device time in that run (``run_ms``) and, at
 that path's largest launch, the plan it took and the kernel's time, plain
 time and bound (the least time the card could take for the same work; at
@@ -2242,6 +2264,10 @@ def poa_plan(k: str, args) -> str:
         W, N, P, state.alig.shape[2], *state.paths.shape[1:])))
 
 
+#: the figures of a kernel replayed at a path's largest launch that the
+#: kernels line keeps (path_kernels)
+REPLAY_FIGURES = ("shape", "plan", "ms", "plain_ms", "bound", "err")
+
 #: where each lockstep kernel's arguments hold the window's pred table
 POA_PRED_ARG = {"poa_topsort": lambda a: a[2], "poa_nwtb": lambda a: a[6],
                 "poa_add": lambda a: a[0].pred,
@@ -2419,12 +2445,11 @@ def phase_poa_window(tag: str, ref: dict, sm_mhz: float) -> dict:
     kernel="window"): the same outputs; the two routes' walls in turns on
     the same data; B10 at its largest launch against its plain version,
     with its time and bound."""
-    import torch
     from claragenomicsanalysis_tpu_torch.models import poa
     from claragenomicsanalysis_tpu_torch.ops import poa_window
     bs, windows, banded, msa = (ref[k] for k in ("bs", "windows", "banded",
                                                  "msa"))
-    n, S = len(windows), bs.max_sequences_per_poa
+    n = len(windows)
     runs = []
     for i, kernel in enumerate(("lockstep", "window", "window", "lockstep")):
         r = run_poa_batch(bs, windows, banded, msa, kernel)
@@ -2459,28 +2484,10 @@ def phase_poa_window(tag: str, ref: dict, sm_mhz: float) -> dict:
           f"max_memory_allocated={run['peak']} B")
     check(same, f"{tag}: the window route differs from the lockstep route")
 
-    # B10 at its largest launch against its plain version, and its bound:
-    # the operations of every step of the lockstep loop on these windows,
-    # the bytes of the inputs' real bases and of the outputs only
     args = run["kt"].largest["poa_window"]
-    ms, out_k = cuda_ms(lambda: poa_window.poa_window(*args), 5)
-    ms_p, out_p = cuda_ms(lambda: poa_window.poa_window_torch(*args), 1)
-    err = maxdiff(out_k, out_p)
-    seqs, weights, lens, n_seqs = args[:4]
-    W = seqs.shape[0]
-    _, probed = run_poa_arrays(bs, banded, args[:4], False, msa, True)
-    real = int(torch.where(torch.arange(S, device=lens.device)[None, :]
-                           < n_seqs[:, None], lens, 0).sum())
-    nbytes = 8 * real + 4 * W * S + 4 * W + sum(4 * t.numel() for t in out_k)
-    b = bound(probed["ops"], nbytes, sm_mhz)
-    shape = (f"W={W} N={bs.padded_nodes} L={bs.padded_seq} "
-             f"P={bs.max_pred_per_node} S={S}{' msa' * msa}")
-    print(f"{tag} poa_window: replayed at the largest launch ({shape}): "
-          f"kernel {ms:.3f} ms vs plain {ms_p:.1f} ms, max diff {err}; bound "
-          f"{probed['ops']} int32 ops (every step of the lockstep loop), "
-          f"{nbytes} B (inputs and outputs) -> {b[0]:.4f} ms ({b[1]})")
-    check(err == 0, f"{tag}: poa_window disagrees with its plain version at "
-          f"its largest launch")
+    fig, out_p = replay_window_kernel(tag, args, bs, banded, msa, sm_mhz)
+    ms_p, b, shape, W = (fig["plain_ms"], fig["bound"], fig["shape"],
+                         args[0].shape[0])
     # and in the plan this launch does not take
     mine = poa_window.window_plan(W, bs, bw)[0]
     other = "block" if mine == "warp" else "warp"
@@ -2495,11 +2502,43 @@ def phase_poa_window(tag: str, ref: dict, sm_mhz: float) -> dict:
     variant = {"variant": f"{tag}: a {other} a window (forced)",
                "shape": shape, "ms": ms_o, "plain_ms": ms_p, "bound": b,
                "err": err_o}
-    return {"poa_window": {"shape": shape, "plan": "/".join(map(
-        str, poa_window.window_plan(W, bs, bw))), "ms": ms,
-                           "plain_ms": ms_p, "bound": b, "err": err,
-                           "launches": run["launches"]["poa_window"],
-                           "run_ms": dev_ms}}, variant
+    return {"poa_window": fig | {"launches": run["launches"]["poa_window"],
+                                 "run_ms": dev_ms}}, variant
+
+
+def replay_window_kernel(tag: str, args, bs, banded: bool, msa: bool,
+                         sm_mhz: float) -> dict:
+    """B10 on ``args`` (a launch's inputs) against its plain version,
+    exactly, with its time (mean of 5 launches), the plain version's (one
+    call) and its bound: the operations of every step of the lockstep loop
+    on these windows, the bytes of the inputs' real bases and of the
+    outputs only.  -> (figures, the plain version's outputs)."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import poa_window
+    S = bs.max_sequences_per_poa
+    ms, out_k = cuda_ms(lambda: poa_window.poa_window(*args), 5)
+    ms_p, out_p = cuda_ms(lambda: poa_window.poa_window_torch(*args), 1)
+    err = maxdiff(out_k, out_p)
+    seqs, weights, lens, n_seqs = args[:4]
+    W = seqs.shape[0]
+    _, probed = run_poa_arrays(bs, banded, args[:4], False, msa, True)
+    real = int(torch.where(torch.arange(S, device=lens.device)[None, :]
+                           < n_seqs[:, None], lens, 0).sum())
+    nbytes = 8 * real + 4 * W * S + 4 * W + sum(4 * t.numel() for t in out_k)
+    b = bound(probed["ops"], nbytes, sm_mhz)
+    shape = (f"W={W} N={bs.padded_nodes} L={bs.padded_seq} "
+             f"P={bs.max_pred_per_node} S={S}{' msa' * msa}")
+    bw = bs.band_width if banded else 0
+    plan = "/".join(map(str, poa_window.window_plan(W, bs, bw)))
+    print(f"{tag} poa_window ({plan}): replayed at the largest launch "
+          f"({shape}): kernel {ms:.3f} ms vs plain {ms_p:.1f} ms, max diff "
+          f"{err}; bound {probed['ops']} int32 ops (every step of the "
+          f"lockstep loop), {nbytes} B (inputs and outputs) -> {b[0]:.4f} ms "
+          f"({b[1]})")
+    check(err == 0, f"{tag}: poa_window disagrees with its plain version at "
+          f"its largest launch")
+    return {"shape": shape, "plan": plan, "ms": ms, "plain_ms": ms_p,
+            "bound": b, "err": err}, out_p
 
 
 def phase_row(pairs, ukk, myers_results, sm_mhz: float) -> dict:
@@ -2687,13 +2726,14 @@ def phase_map_correctness():
           f"{recall}")
 
 
-def phase_map_main() -> dict:
+def phase_map_main() -> tuple:
     """Phase 20, the map main path at full size: 10,000 reads of median
     10 kb (100 Mbp, 20x of a 5 Mbp genome; scripts/bench_map_scale.py's
     default shape) through ``map_all_vs_all(..., device="cuda")`` at
     ``MapperConfig()``'s defaults (4 index chunks, 16 chunk pairs): one
     untimed warm-up, then a timed run with each mapper.* stage's device
-    time by CUDA events."""
+    time by CUDA events.  -> (its figures, the timed run's MapResult, the
+    reads)."""
     import collections
     import numpy as np
     import torch
@@ -2798,7 +2838,7 @@ def phase_map_main() -> dict:
           and precision == 1.0 and recall >= 0.95,
           f"phase 20: rows out of range or precision {precision}, recall "
           f"{recall}")
-    return out
+    return out, res, reads
 
 
 #: the compositions' mapper settings, MAP_ARGS as a MapperConfig
@@ -2867,12 +2907,13 @@ def run_path(fn):
                 hirschberg=read_hirschberg())
 
 
-def path_kernels(tag: str, run: dict, sm_mhz: float) -> dict:
+def path_kernels(tag: str, run: dict, sm_mhz: float, window=None) -> dict:
     """A path's kernels line entries: each launched kernel's launches and
     device time in the run, and each replayed at its largest launch there
     against its plain version, with its time and bound (the banded NW with
-    its decoder on the NW's traceback).  Names the kernel that spent the
-    most device time in the run."""
+    its decoder on the NW's traceback; B10 with ``window``, the path's
+    (BatchSize, banded, msa)).  Names the kernel that spent the most device
+    time in the run."""
     kt, launches = run["kt"], run["launches"]
     dev_ms = kt.ms()
     per = {k: {"launches": n, "run_ms": dev_ms.get(k, 0.0)}
@@ -2897,11 +2938,13 @@ def path_kernels(tag: str, run: dict, sm_mhz: float) -> dict:
     for k in POA_STEPS:
         if k in per:
             figs[k] = replay_poa_kernel(tag, k, kt.largest[k], sm_mhz)
+    if "poa_window" in per:
+        figs["poa_window"], _ = replay_window_kernel(
+            tag, kt.largest["poa_window"], *window, sm_mhz)
     check(set(figs) == set(per), f"{tag}: no replay for "
           f"{set(per) - set(figs)}")
     for k, v in figs.items():
-        per[k].update({f: v[f] for f in ("shape", "plan", "ms", "plain_ms",
-                                         "bound", "err")})
+        per[k].update({f: v[f] for f in REPLAY_FIGURES})
     kt.largest.clear()
     return per
 
@@ -3192,7 +3235,8 @@ def phase_correct(parser, reads, genome, sm_mhz: float) -> tuple:
           f"phase 22: no B5 launch at 16 pred slots ({fig['shape']})")
     variant = {"variant": "phase 22 correct, max_support 15, deepest "
                           "bucket", **fig}
-    return path_kernels("phase 22", run, sm_mhz), {"poa_nwtb": [variant]}
+    return (path_kernels("phase 22", run, sm_mhz), {"poa_nwtb": [variant]},
+            res.seqs)
 
 
 def compositions_main() -> int:
@@ -3209,8 +3253,379 @@ def compositions_main() -> int:
           f"{sum(len(r.seq) for r in reads) / 1e6:.3f} Mbp, simulated in "
           f"{time.perf_counter() - t0:.1f} s")
     paths = {"pipeline": phase_pipeline(parser, reads, sm_mhz)}
-    paths["correct"], variants = phase_correct(parser, reads, genome, sm_mhz)
+    paths["correct"], variants, _ = phase_correct(parser, reads, genome,
+                                                  sm_mhz)
     print(json.dumps({"paths": paths, "variants": variants}, default=str))
+    return 0
+
+# ----------------------------------------------------- multi-rank (23)
+
+RING_SP_MIN_LEN = 4096   # phase 23c: levels of this side or more take the ring
+PHASE23_DIR = os.path.join(ROOT, "build", "smoke_phase23")
+
+
+def align_digest(results) -> str:
+    """sha256 of alignments' statuses, distances and paths."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for r in results:
+        h.update(f"{int(r.status)},{r.edit_distance},{len(r.path)};".encode())
+        h.update(np.asarray(r.path, np.int8).tobytes())
+    return h.hexdigest()
+
+
+def poa_digest(run: dict) -> str:
+    """sha256 of a POA run's consensus, coverage and statuses."""
+    import hashlib
+    h = hashlib.sha256()
+    for c, cov, st in zip(run["cons"], run["covs"], run["stats"]):
+        h.update(f"{c};{cov};{int(st)}|".encode())
+    return h.hexdigest()
+
+
+def rows_digest(rows, statuses) -> str:
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256(np.ascontiguousarray(rows).tobytes())
+    h.update(repr(rows.shape).encode() + repr([int(x) for x in statuses])
+             .encode())
+    return h.hexdigest()
+
+
+def write_fasta(path: str, records) -> None:
+    with open(path, "w") as f:
+        for r in records:
+            f.write(f">{r.name}\n{r.seq}\n")
+
+
+def phase23_map_refs(res, reads) -> dict:
+    """Phase 20's reads as a FASTA file for the ranks, and its rows."""
+    os.makedirs(PHASE23_DIR, exist_ok=True)
+    path = os.path.join(PHASE23_DIR, "map_reads.fasta")
+    write_fasta(path, reads)
+    return {"map_fasta": path, "map": rows_digest(res.rows, res.statuses),
+            "map_bases": sum(len(r.seq) for r in reads),
+            "map_overlaps": res.rows.shape[1]}
+
+
+def phase23_correct_refs(reads, corrected) -> dict:
+    """Phase 22's reads as a FASTA file for the ranks, and its corrected
+    reads."""
+    import hashlib
+    os.makedirs(PHASE23_DIR, exist_ok=True)
+    path = os.path.join(PHASE23_DIR, "correct_reads.fasta")
+    write_fasta(path, reads)
+    return {"correct_fasta": path,
+            "correct": hashlib.sha256("\n".join(corrected).encode())
+            .hexdigest(),
+            "correct_bases": sum(len(r.seq) for r in reads)}
+
+
+def rank_path(fn, tag: str, sm_mhz: float, window=None) -> dict:
+    """``fn()`` on this rank as a main path: launch counts zeroed just
+    before and read just after, kernel launches and trace ranges timed, the
+    host clock ending in a sync, the rank's peak memory.  Then rank 0
+    replays each kernel of its run at its largest launch against its plain
+    version (path_kernels; ``window`` as there), at the shapes this rank's
+    share gave them, and the ranks wait for each other, so that no rank's
+    next path holds rank 0's replays."""
+    import torch.distributed as dist
+    from claragenomicsanalysis_tpu_torch.parallel import multihost
+    run = run_path(fn)
+    ms = run["kt"].ms()
+    figs = {}
+    if multihost.is_writer() and any(run["launches"].values()):
+        figs = path_kernels(f"{tag} rank 0", run, sm_mhz, window)
+    run["kt"].largest.clear()
+    dist.barrier()
+    return dict(out=run["out"], wall=run["wall"], peak=run["peak"],
+                launches={k: v for k, v in run["launches"].items() if v},
+                kernel_ms=ms, host_ms=run["st"].host_ms(),
+                stage_ms=run["st"].ms(), hirschberg=run["hirschberg"],
+                figs={k: {f: v[f] for f in REPLAY_FIGURES}
+                      for k, v in figs.items()})
+
+
+def phase23_rank(refs: dict) -> dict:
+    """One rank of phase 23, in a process of its own (run_ranks): the four
+    multi-rank paths in turn; -> digests and figures, nothing large."""
+    import hashlib
+    import torch
+    from claragenomicsanalysis_tpu_torch import create_aligner
+    from claragenomicsanalysis_tpu_torch.align.hirschberg import \
+        hirschberg_align_batch
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             CorrectConfig,
+                                                             MapperConfig)
+    from claragenomicsanalysis_tpu_torch.io.fasta import create_fasta_parser
+    from claragenomicsanalysis_tpu_torch.models import correct, mapper, poa
+    from claragenomicsanalysis_tpu_torch.parallel import comm
+    from claragenomicsanalysis_tpu_torch.parallel.mesh import (axis_meshes,
+                                                               make_mesh)
+    out = {"device": str(torch.device("cuda", torch.cuda.current_device()))}
+    sm = refs["sm_mhz"]
+    mesh = make_mesh()
+    _, rep = axis_meshes(mesh)
+
+    # 23a: the map on 'rep', a warm-up and a timed run
+    parser = create_fasta_parser(refs["map_fasta"])
+    cfg = MapperConfig()
+    warm = mapper.map_all_vs_all(parser, cfg, device="cuda", mesh=rep)
+    sent = comm.all_to_all.bytes
+    run = rank_path(lambda: mapper.map_all_vs_all(parser, cfg, device="cuda",
+                                                  mesh=rep), "phase 23a", sm)
+    res = run.pop("out")
+    out["map"] = dict(run, digest=rows_digest(res.rows, res.statuses),
+                      warm_same=rows_digest(warm.rows, warm.statuses)
+                      == rows_digest(res.rows, res.statuses),
+                      a2a_bytes=comm.all_to_all.bytes - sent)
+    del parser, warm, res
+
+    # 23b: the correction on both views
+    parser = create_fasta_parser(refs["correct_fasta"])
+    ccfg = CorrectConfig(mapper=MapperConfig(**COMPOSITION_MAPPER))
+    run = rank_path(lambda: correct.correct_reads(parser, ccfg,
+                                                  device="cuda", mesh=mesh),
+                    "phase 23b", sm)
+    res = run.pop("out")
+    out["correct"] = dict(run, digest=hashlib.sha256(
+        "\n".join(res.seqs).encode()).hexdigest(), windows=(
+            res.n_polished, res.n_windows, res.n_window_failed))
+    del parser, res
+
+    # 23c: ukkonen on 'data', both POA routes on 'data', Hirschberg on 'sp'
+    pairs = refs["pairs"]
+
+    def align(sub, algorithm, m, **kw):
+        al = create_aligner(max(len(a) for a, _ in sub),
+                            max(len(b) for _, b in sub), len(sub),
+                            band_radius=64, algorithm=algorithm,
+                            device="cuda", mesh=m, **kw)
+        for a, b in sub:
+            al.add_alignment(a, b)
+        return al.get_alignments()
+
+    run = rank_path(lambda: align(pairs, "ukkonen", mesh), "phase 23c ukkonen",
+                    sm)
+    out["ukkonen"] = dict(run, digest=align_digest(run.pop("out")))
+    bs = BatchSize(**refs["poa_cfg"])
+    for kernel in ("lockstep", "window"):
+        def poa_run():
+            b = poa.create_batch(bs, max_poas=len(refs["poa_windows"]),
+                                 device="cuda", kernel=kernel, mesh=mesh)
+            for w in refs["poa_windows"]:
+                b.add_poa_group(w)
+            return b.get_consensus()
+        run = rank_path(poa_run, f"phase 23c POA {kernel}", sm,
+                        (bs, False, False))
+        cons, covs, stats = run.pop("out")
+        out[f"poa_{kernel}"] = dict(run, digest=poa_digest(
+            dict(cons=cons, covs=covs, stats=stats)))
+    sp = make_mesh(data=1, sp=mesh.size)
+    hirschberg_align_batch.ring_levels = 0
+    run = rank_path(lambda: align(pairs[:N_SUBSET], "hirschberg-myers", sp,
+                                  sp_min_len=RING_SP_MIN_LEN),
+                    "phase 23c hirschberg", sm)
+    out["hirschberg"] = dict(run, digest=align_digest(run.pop("out")),
+                             ring_levels=hirschberg_align_batch.ring_levels)
+    return out
+
+
+def phase23_cli(n_cards: int) -> None:
+    """23d: ``cli <sub> -d 2 --device cuda``; byte-equal to the goldens on
+    two cards (a process each), refused with the JAX message on one
+    (``cli.main`` in this process: the refusal raises SystemExit with the
+    message before any rank starts, which a process would print to stderr
+    and exit 1 with)."""
+    from claragenomicsanalysis_tpu_torch import cli
+    data = os.path.join(ROOT, "data")
+    runs = {"align": (["align", f"{data}/sample_queries.fasta",
+                       f"{data}/sample_targets.fasta"], "sample_align.txt"),
+            "poa": (["poa", f"{data}/sample-windows.txt"],
+                    "sample_consensus.txt"),
+            "map": (["map", f"{data}/sample_reads.fasta"] + MAP_ARGS,
+                    "sample_overlaps.paf"),
+            "pipeline": (["pipeline", f"{data}/sample_reads.fasta"]
+                         + MAP_ARGS, "sample_pipeline.paf"),
+            "correct": (["correct", f"{data}/sample_reads.fasta"] + MAP_ARGS,
+                        "sample_corrected.fasta")}
+    for sub, (argv, golden) in runs.items():
+        argv = ["--log-level", "WARNING"] + argv + ["--device", "cuda", "-d",
+                                                    "2"]
+        t0 = time.perf_counter()
+        if n_cards >= 2:
+            p = subprocess.run([sys.executable, "-m",
+                                "claragenomicsanalysis_tpu_torch.cli"] + argv,
+                               cwd=ROOT, capture_output=True, text=True,
+                               timeout=600)
+            with open(os.path.join(data, "golden", golden)) as f:
+                same = p.returncode == 0 and p.stdout == f.read()
+            print(f"phase 23d cli {sub} -d 2 --device cuda: rc "
+                  f"{p.returncode}, {'identical to' if same else 'DIFFERENT from'}"
+                  f" data/golden/{golden} ({time.perf_counter() - t0:.1f} s)")
+            check(same, f"phase 23d: cli {sub} -d 2 differs from {golden}")
+        else:
+            msg = "--devices 2 but only 1 available"
+            try:
+                cli.main(argv)
+                exit_with = None
+            except SystemExit as e:
+                exit_with = e.code
+            print(f"phase 23d cli {sub} -d 2 --device cuda on one card: "
+                  f"SystemExit({exit_with!r})")
+            check(exit_with == msg, f"phase 23d: cli {sub} -d 2 on one card "
+                  f"did not refuse with {msg!r}")
+
+
+def phase_multi_rank(refs: dict) -> dict:
+    """Phase 23: the multi-rank paths (see the module docstring), each
+    against its one-rank phase.  -> the kernels line's entries of its
+    paths, launches and device ms summed over the ranks."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import _build
+    from claragenomicsanalysis_tpu_torch.parallel import multihost
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if n_cards >= 2 else ["cuda:0", "cuda:0"]
+    backend = multihost.choose_backend(devices)
+    _build.build()                     # the ranks load the built library
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multihost.run_ranks(phase23_rank, len(devices), devices,
+                                args=(refs,), timeout=600,
+                                log_level="WARNING")
+    span = time.perf_counter() - t0
+    print(f"phase 23 ranks: {len(devices)} on {devices} ({backend}: "
+          f"{'a card a rank' if backend == 'nccl' else 'ranks that share a card; two ranks on one card measure the code path, not scaling'}"
+          f"), {span:.1f} s from spawn to the last result, devices "
+          f"{[r['device'] for r in ranks]}")
+
+    def per_rank(key, fmt):
+        return "; ".join(f"rank {i}: {fmt(r[key])}" for i, r in
+                         enumerate(ranks))
+
+    # 23a
+    walls = [r["map"]["wall"] for r in ranks]
+    wall = max(walls)
+    print(f"phase 23a map on rep = 2 ({refs['map_bases'] / 1e6:.3f} Mbp, "
+          f"MapperConfig(), {refs['map_overlaps']} overlaps): wall "
+          f"{wall:.3f} s (slowest rank) = {refs['map_bases'] / wall / 1e6:.3f}"
+          f" Mbp/s; " + per_rank("map", lambda m: (
+              f"wall {m['wall']:.3f} s, all_to_all {m['a2a_bytes']} B in "
+              f"{m['host_ms'].get('mapper.all_to_all', 0.0):.1f} ms (host), "
+              f"peak {m['peak'] / 2**30:.3f} GiB, stages (host ms) "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                  m['host_ms'].items()) if k.startswith("mapper.")))))
+    check(all(r["map"]["digest"] == refs["map"] and r["map"]["warm_same"]
+              for r in ranks),
+          "phase 23a: the rep-sharded map's rows differ from phase 20's")
+    print("phase 23a checks: every rank's rows and statuses equal phase "
+          "20's one-rank run, warm-up and timed run alike")
+
+    # 23b
+    walls = [r["correct"]["wall"] for r in ranks]
+    wall = max(walls)
+    print(f"phase 23b correct on two ranks ({refs['correct_bases']} bases, "
+          f"map on rep, POA on data): wall {wall:.3f} s (slowest rank) = "
+          f"{refs['correct_bases'] / wall:.1f} corrected bases/s; "
+          + per_rank("correct", lambda c: (
+              f"wall {c['wall']:.3f} s, kernel share "
+              f"{sum(c['kernel_ms'].values()) / (c['wall'] * 1e3):.4f} "
+              f"({sum(c['kernel_ms'].values()):.1f} ms), windows "
+              f"{c['windows']}, peak {c['peak'] / 2**30:.3f} GiB, "
+              f"launches {c['launches']}")))
+    check(all(r["correct"]["digest"] == refs["correct"] for r in ranks),
+          "phase 23b: the corrected reads differ from phase 22's")
+    print("phase 23b checks: every rank's corrected reads equal phase 22's")
+
+    # 23c
+    for key, tag, ref in (("ukkonen", "ukkonen on data = 2, phase 5's "
+                           f"{len(refs['pairs'])} pairs", "ukkonen"),
+                          ("poa_lockstep", "POA lockstep on data = 2, phase "
+                           f"12's {len(refs['poa_windows'])} windows", "poa"),
+                          ("poa_window", "POA window route on data = 2, "
+                           "phase 12's windows", "poa"),
+                          ("hirschberg", f"hirschberg-myers on sp = 2, "
+                           f"levels >= {RING_SP_MIN_LEN} on the ring, phase "
+                           f"7's first {N_SUBSET} pairs", "hirschberg")):
+        same = all(r[key]["digest"] == refs[ref] for r in ranks)
+        extra = ""
+        if key == "hirschberg":
+            lv = ranks[0][key]["ring_levels"]
+            ring_ms = ranks[0][key]["host_ms"].get("hirschberg.ring", 0.0)
+            extra = (f"; {lv} ring levels, {ring_ms / max(lv, 1):.1f} ms a "
+                     f"level (host, rank 0); {ranks[0][key]['hirschberg']}")
+            check(lv >= 1, "phase 23c: no Hirschberg level took the ring")
+        print(f"phase 23c {tag}: " + per_rank(key, lambda c: (
+            f"wall {c['wall']:.3f} s, launches {c['launches']}"))
+            + f"; equal to the one-rank phase: {same}{extra}")
+        check(same, f"phase 23c: {key} on two ranks differs from one rank")
+
+    phase23_cli(n_cards)
+    import shutil
+    shutil.rmtree(PHASE23_DIR, ignore_errors=True)
+    print(f"phase 23 total: {time.perf_counter() - t_phase:.1f} s")
+
+    names = {"map": "map_rep2", "correct": "correct_2ranks",
+             "ukkonen": "ukkonen_data2", "poa_lockstep": "poa_data2",
+             "poa_window": "poa_window_data2", "hirschberg": "hirschberg_sp2"}
+    paths = {}
+    for key, path in names.items():
+        per = {}
+        for r in ranks:
+            for k, n in r[key]["launches"].items():
+                e = per.setdefault(k, {"launches": 0, "run_ms": 0.0})
+                e["launches"] += n
+                e["run_ms"] += r[key]["kernel_ms"].get(k, 0.0)
+        check(set(ranks[0][key]["figs"]) == set(ranks[0][key]["launches"]),
+              f"phase 23: {path} has no replay on rank 0 for "
+              f"{set(ranks[0][key]['launches']) - set(ranks[0][key]['figs'])}")
+        for k, v in ranks[0][key]["figs"].items():
+            per[k].update(v)
+        if per:
+            paths[path] = per
+    check(all(paths[p] for p in names.values() if p != "map_rep2"),
+          "phase 23: a multi-rank path launched no kernel")
+    return paths
+
+
+def multi_rank_main() -> int:
+    """``--multi-rank``: phases 1 and 23 alone, with their own one-rank
+    references (phase 5's pairs through ukkonen and myers, phase 12's
+    windows, phase 20's map, phase 22's correction)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
+                                                             CorrectConfig,
+                                                             MapperConfig)
+    from claragenomicsanalysis_tpu_torch.models import correct, mapper
+    sm_mhz = phase_env()
+    pairs = main_path_pairs(N_PAIRS, SEED)
+    _, ukk, _ = run_aligner(pairs, "ukkonen")
+    _, myers, _ = run_aligner(pairs[:N_SUBSET], "myers")
+    S = POA_CORR["max_sequences_per_poa"]
+    bs = BatchSize(**POA_CORR)
+    _, windows, _ = poa_window_arrays(N_POA, 128, S, max(5, 128 // 20),
+                                      bs.padded_seq, SEED + 20 + S)
+    corr = run_poa_batch(bs, windows, False, False, "lockstep")
+    refs = {"pairs": pairs, "ukkonen": align_digest(ukk),
+            "hirschberg": align_digest(myers), "poa_cfg": POA_CORR,
+            "poa_windows": windows, "poa": poa_digest(corr),
+            "sm_mhz": sm_mhz}
+    parser, reads = map_reads(5_000_000, 10_000, 10_000, 11)
+    refs |= phase23_map_refs(mapper.map_all_vs_all(parser, MapperConfig(),
+                                                   device="cuda"), reads)
+    del parser, reads
+    parser, reads, _ = composition_reads()
+    cfg = CorrectConfig(mapper=MapperConfig(**COMPOSITION_MAPPER))
+    refs |= phase23_correct_refs(
+        reads, correct.correct_reads(parser, cfg, device="cuda").seqs)
+    print(json.dumps({"paths": phase_multi_rank(refs)}))
     return 0
 
 
@@ -3267,16 +3682,26 @@ def main() -> int:
             variants.setdefault(k, []).extend(v)
 
     phase_map_correctness()
-    phase_map_main()
+    refs = {"pairs": pairs, "ukkonen": align_digest(ukk["results"]),
+            "hirschberg": align_digest(myers_results[:N_SUBSET]),
+            "poa_cfg": corr["cfg"], "poa_windows": corr["windows"],
+            "poa": poa_digest(corr), "sm_mhz": sm_mhz}
+    _, map_res, map_reads_ = phase_map_main()
+    refs |= phase23_map_refs(map_res, map_reads_)
+    del map_res, map_reads_
     t0 = time.perf_counter()
     parser, reads, genome = composition_reads()
     print(f"phases 21-22 data: {len(reads)} reads, "
           f"{sum(len(r.seq) for r in reads) / 1e6:.3f} Mbp, simulated in "
           f"{time.perf_counter() - t0:.1f} s (not in the walls)")
     paths["pipeline"] = phase_pipeline(parser, reads, sm_mhz)
-    paths["correct"], more = phase_correct(parser, reads, genome, sm_mhz)
+    paths["correct"], more, corrected = phase_correct(parser, reads, genome,
+                                                      sm_mhz)
     for k, v in (FORCED_PLANS | more).items():
         variants.setdefault(k, []).extend(v)
+    refs |= phase23_correct_refs(reads, corrected)
+    del corrected
+    paths |= phase_multi_rank(refs)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "claragenomicsanalysis_tpu")
@@ -4606,11 +5031,13 @@ if __name__ == "__main__":
                                                "map_profile.txt")))
     if len(sys.argv) == 3 and sys.argv[1] == "--turns":
         sys.exit(kernel_turns_main(sys.argv[2]))
+    if sys.argv[1:] == ["--multi-rank"]:
+        sys.exit(multi_rank_main())
     if sys.argv[1:] == ["--compositions"]:
         sys.exit(compositions_main())
     if len(sys.argv) > 1:
         sys.exit("usage: python3 chip_smoke.py [--nwtb-split | "
                  "--window-split | --add-split | --topsort-split | "
                  "--finish-split | --map-profile [OUT] | --turns "
-                 "PARENT_DIR | --compositions]")
+                 "PARENT_DIR | --compositions | --multi-rank]")
     sys.exit(main())

@@ -1,6 +1,5 @@
 """Hirschberg–Myers divide and conquer for long pairs (counterpart of
-``claragenomicsanalysis_tpu/align/hirschberg.py``, without its
-sequence-parallel ring path).
+``claragenomicsanalysis_tpu/align/hirschberg.py``).
 
 Linear-memory global alignment, level by level: every open fragment of the
 whole batch whose query side exceeds ``BASE_Q`` is split at its middle query
@@ -20,17 +19,27 @@ give the same path.  Fragments live as NumPy arrays on the host; each
 level's sequences are cut from the pairs' codes on the device, and only the
 split columns come back.
 
-``hirschberg_align_batch.pairs`` and ``.levels`` count the pairs it aligned
-and the split levels it ran, as the kernel wrappers count their launches.
+With a mesh whose 'sp' axis has more than one rank, a level whose longer
+side reaches ``sp_min_len`` takes its forward and reverse rows from the
+ring wavefront (parallel/ring_nw.py) instead of B4; the rows are the same
+unit-cost distances, so the split, and the path, do not change.  By
+default the threshold is :func:`ring_min_len`, the shortest query B4 runs
+in more than one pass (the JAX package takes the longest query whose
+Myers state fits one TPU core's VMEM).
+
+``hirschberg_align_batch.pairs``, ``.levels`` and ``.ring_levels`` count
+the pairs it aligned, the split levels it ran and those of them that went
+to the ring, as the kernel wrappers count their launches.
 """
 
 import numpy as np
 import torch
 
 from ..ops.banded import launch_chunks, resolve
-from ..ops.myers import myers_bottom_row
+from ..ops.myers import WORD, myers_bottom_row, myers_plan
 from ..ops.nw_diag import INF
 from ..utils.genomeutils import PAD, pack_pairs
+from ..utils.logging import initialize_logger
 from ..utils.profiling import trace_range
 
 BASE_Q = 32  # fragments with a query side <= BASE_Q are solved directly
@@ -71,12 +80,32 @@ def split_points(rows: torch.Tensor, tlen: torch.Tensor) -> torch.Tensor:
     return torch.where(total == best, jj, rows.shape[1]).min(1).values
 
 
+def ring_min_len() -> int:
+    """The shortest padded query for which B4 needs more than one pass
+    (``ops.myers.myers_plan``): where one pass stops holding the query,
+    the level goes to the ring."""
+    words = 1
+    while myers_plan(words)[2] == 1:
+        words += 1
+    return (words - 1) * WORD + 1
+
+
 def hirschberg_align_batch(queries: list[str], targets: list[str], device,
-                           kernel: str = "diag"
+                           kernel: str = "diag", mesh=None,
+                           sp_min_len: int | None = None
                            ) -> tuple[list[list[int]], np.ndarray]:
     """-> (paths, dists): each pair's optimal edit path (AlignmentState
     codes) and its cost, with the DP on ``device`` and the base cases by
-    the banded-NW ``kernel``."""
+    the banded-NW ``kernel``.  ``mesh`` with an 'sp' axis > 1: levels whose
+    longer side reaches ``sp_min_len`` (default :func:`ring_min_len`) take
+    their rows from the ring; every rank calls with the same pairs."""
+    ring = mesh if mesh is not None and mesh.shape.get("sp", 1) > 1 else None
+    if ring is not None and sp_min_len is None:
+        sp_min_len = ring_min_len()
+        initialize_logger().info(
+            "hirschberg: auto sp threshold %d bases (the shortest query B4 "
+            "runs in more than one pass); longer levels use the "
+            "ring-wavefront 'sp' axis", sp_min_len)
     nw_fn, decode_fn = resolve(device, kernel)
     dev = torch.device(device)
     P = len(queries)
@@ -101,7 +130,8 @@ def hirschberg_align_batch(queries: list[str], targets: list[str], device,
         frag = tuple(a[~base] for a in frag)
         if len(frag[0]):
             with trace_range("hirschberg.split"):
-                frag = _split_level(Q, T, *frag)
+                frag = _split_level(Q, T, *frag, ring=ring,
+                                    sp_min_len=sp_min_len)
                 hirschberg_align_batch.levels += 1
 
     pair = np.concatenate([p for p, _, _ in leaves])
@@ -117,6 +147,7 @@ def hirschberg_align_batch(queries: list[str], targets: list[str], device,
 
 hirschberg_align_batch.pairs = 0
 hirschberg_align_batch.levels = 0
+hirschberg_align_batch.ring_levels = 0
 
 
 def _solve_base(Q, T, pair, qlo, qhi, tlo, thi, nw_fn, decode_fn, kernel):
@@ -139,9 +170,11 @@ def _solve_base(Q, T, pair, qlo, qhi, tlo, thi, nw_fn, decode_fn, kernel):
     return out
 
 
-def _split_level(Q, T, pair, qlo, qhi, tlo, thi):
+def _split_level(Q, T, pair, qlo, qhi, tlo, thi, ring=None,
+                 sp_min_len: int | None = None):
     """One level: forward and reversed bottom rows of every fragment in one
-    batched call; -> the two children of each fragment."""
+    batched call (B4, or the ring of mesh ``ring`` where the level's longer
+    side reaches sp_min_len); -> the two children of each fragment."""
     mid = (qlo + qhi) // 2
     fq, rq, tn = mid - qlo, qhi - mid, thi - tlo
     Lq, Lt = int(max(fq.max(), rq.max())), int(tn.max())
@@ -152,7 +185,14 @@ def _split_level(Q, T, pair, qlo, qhi, tlo, thi):
     ql = torch.from_numpy(np.concatenate([fq, rq]).astype(np.int32))
     tl = torch.from_numpy(np.concatenate([tn, tn]).astype(np.int32))
     ql, tl = ql.to(Q.device), tl.to(Q.device)
-    rows, _ = myers_bottom_row(q, ql, t, tl)
+    if ring is not None and max(Lq, Lt) >= sp_min_len:
+        from ..parallel.ring_nw import ring_wavefront_nw_rows
+        with trace_range("hirschberg.ring"):
+            rows = torch.from_numpy(ring_wavefront_nw_rows(
+                q, ql, t, tl, ring, device=Q.device)).to(Q.device)
+        hirschberg_align_batch.ring_levels += 1
+    else:
+        rows, _ = myers_bottom_row(q, ql, t, tl)
     jstar = split_points(rows, tl).cpu().numpy()
     cut = tlo + jstar
     return (np.concatenate([pair, pair]), np.concatenate([qlo, mid]),

@@ -7,8 +7,18 @@ e.g. ``... cli align q.fa t.fa``, ``... cli poa windows.txt [--msa]``,
 ``... cli correct reads.fa``.  Output and flags are those of the JAX
 package's CLI, the global ``--log-level``, ``--timings`` and
 ``--profile-dir`` included, plus ``--device {cuda,cpu}`` on every
-subcommand that runs on a device (``simulate`` and ``evaluate`` do not);
-the JAX package's ``-d/--devices`` mesh flag has no counterpart yet.
+subcommand that runs on a device (``simulate`` and ``evaluate`` do not).
+
+``-d/--devices N`` (align, poa, map, pipeline, correct) starts N rank
+processes (parallel/multihost.run_ranks), one a card under ``--device
+cuda`` (NCCL; N above the cards present exits with the JAX message) or N
+gloo ranks on the CPU under ``--device cpu``.  The ranks lay a mesh over
+the axis the subcommand shards, as the JAX CLI does: align
+``hirschberg-myers`` on 'sp', the other algorithms on 'data'; poa on
+'data'; map on 'rep'; pipeline and correct both views.  Every rank reads
+the same inputs; rank 0 alone writes stdout, the summaries on stderr,
+``--timings`` and ``--profile-dir``, and the CLI exits with the first
+non-zero rank's code.  ``-d 1`` forms no process group.
 """
 
 import argparse
@@ -20,7 +30,25 @@ import sys
 from .core.config import BatchSize, MapperConfig, PipelineConfig
 from .core.status import OutputType, StatusType
 from .io.fasta import create_fasta_parser
+from .parallel.multihost import is_writer
 from .utils.logging import initialize_logger
+
+
+def _note(msg: str) -> None:
+    """A summary line on stderr, from rank 0 only."""
+    if is_writer():
+        print(msg, file=sys.stderr)
+
+
+def _cli_mesh(args, sp: bool = False):
+    """The mesh of a rank of ``-d N``: every rank on 'data' (on 'sp' with
+    ``sp``); None without ranks."""
+    from .parallel.mesh import make_mesh
+    from .parallel.multihost import process_count
+    n = process_count()
+    if n <= 1:
+        return None
+    return make_mesh(data=1, sp=n) if sp else make_mesh(data=n)
 
 
 def cmd_align(args) -> int:
@@ -30,8 +58,13 @@ def cmd_align(args) -> int:
     n = min(qp.get_num_sequences(), tp.get_num_sequences())
     max_q = max(len(qp.get_sequence_by_id(i).seq) for i in range(n))
     max_t = max(len(tp.get_sequence_by_id(i).seq) for i in range(n))
+    # -d: hirschberg-myers puts the ranks on the 'sp' ring (one pair's DP
+    # split by target stripes, the threshold automatic), the batch
+    # algorithms on 'data'
+    mesh = _cli_mesh(args, sp=args.algorithm == "hirschberg-myers")
     aligner = create_aligner(max_q, max_t, n, band_radius=args.band_radius,
-                             algorithm=args.algorithm, device=args.device)
+                             algorithm=args.algorithm, device=args.device,
+                             mesh=mesh)
     for i in range(n):
         aligner.add_alignment(qp.get_sequence_by_id(i).seq,
                               tp.get_sequence_by_id(i).seq)
@@ -59,7 +92,7 @@ def cmd_poa(args) -> int:
     mask = OutputType.CONSENSUS | (OutputType.MSA if args.msa else 0)
     batch = create_batch(batch_size=bs, output_mask=mask,
                          max_poas=len(windows), banded_alignment=args.banded,
-                         device=args.device)
+                         device=args.device, mesh=_cli_mesh(args))
     for w in windows:
         batch.add_poa_group(w)
     cons, _, stats = batch.get_consensus()
@@ -107,18 +140,21 @@ def _mapper_cfg(args) -> MapperConfig:
 def cmd_map(args) -> int:
     from .models.mapper import (Overlapper, map_all_vs_all,
                                 map_query_vs_target, overlaps_to_paf)
+    from .parallel.mesh import axis_meshes
     parser = create_fasta_parser(args.input)
+    _, mesh_rep = axis_meshes(_cli_mesh(args))
     if args.target:
         tparser = create_fasta_parser(args.target)
         res = map_query_vs_target(
             parser, tparser, _mapper_cfg(args),
             target_index_size_mb=args.target_index_size or None,
-            index_store_dir=args.index_store or None, device=args.device)
+            index_store_dir=args.index_store or None, device=args.device,
+            mesh=mesh_rep)
     else:
         tparser = parser
         res = map_all_vs_all(parser, _mapper_cfg(args),
                              index_store_dir=args.index_store or None,
-                             device=args.device)
+                             device=args.device, mesh=mesh_rep)
     overlaps = res.overlaps
     if args.fuse_overlaps:
         overlaps = Overlapper.rows_to_overlaps(
@@ -126,8 +162,8 @@ def cmd_map(args) -> int:
                                          max_gap=args.fusion_max_gap))
     if args.rescue_overlap_ends:
         if args.target:
-            print("warning: --rescue-overlap-ends is all-vs-all only; "
-                  "skipped", file=sys.stderr)
+            _note("warning: --rescue-overlap-ends is all-vs-all only; "
+                  "skipped")
         else:
             overlaps = Overlapper.rescue_overlap_ends(
                 overlaps, parser, extension=args.rescue_extension,
@@ -136,8 +172,7 @@ def cmd_map(args) -> int:
         print(row)
     bad = [s for s in res.statuses if s != StatusType.SUCCESS]
     if bad:
-        print(f"warning: {len(bad)} batch(es) overflowed anchors",
-              file=sys.stderr)
+        _note(f"warning: {len(bad)} batch(es) overflowed anchors")
     return 0
 
 
@@ -186,15 +221,15 @@ def cmd_correct(args) -> int:
                         aligner_band_radius=args.band_radius,
                         poa_backend=args.poa_backend)
     res = correct_reads(parser, cfg, work_dir=args.work_dir or None,
-                        device=args.device)
+                        device=args.device, mesh=_cli_mesh(args))
     if args.output:
-        write_fasta(res, args.output)
+        if is_writer():
+            write_fasta(res, args.output)
     else:
         for name, seq in zip(res.names, res.seqs):
             print(f">{name}\n{seq}")
-    print(f"polished {res.n_polished}/{res.n_windows} windows "
-          f"({res.n_window_failed} kept backbone after POA failure)",
-          file=sys.stderr)
+    _note(f"polished {res.n_polished}/{res.n_windows} windows "
+          f"({res.n_window_failed} kept backbone after POA failure)")
     return 0
 
 
@@ -203,11 +238,10 @@ def cmd_pipeline(args) -> int:
     parser = create_fasta_parser(args.input)
     cfg = PipelineConfig(mapper=_mapper_cfg(args),
                          aligner_band_radius=args.band_radius)
-    res = run_pipeline(parser, cfg, device=args.device)
+    res = run_pipeline(parser, cfg, device=args.device, mesh=_cli_mesh(args))
     for row in res.paf_rows:
         print(row)
-    print(f"aligned {res.n_aligned} overlaps ({res.n_align_failed} failed)",
-          file=sys.stderr)
+    _note(f"aligned {res.n_aligned} overlaps ({res.n_align_failed} failed)")
     return 0
 
 
@@ -226,7 +260,11 @@ def _run_profiled(fn, args, out_dir: str) -> int:
     return rc
 
 
-def main(argv=None) -> int:
+def _add_devices_flag(p, help_text: str) -> None:
+    p.add_argument("-d", "--devices", type=int, default=1, help=help_text)
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="claragenomicsanalysis_tpu_torch")
     ap.add_argument("--log-level", default="INFO")
     ap.add_argument("--timings", action="store_true",
@@ -246,6 +284,9 @@ def main(argv=None) -> int:
     a.add_argument("--print-alignments", action="store_true")
     a.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the DP runs (cuda: the hand-written kernels)")
+    _add_devices_flag(a, "hirschberg-myers: ring-shard one pair's DP over "
+                         "this many devices ('sp' axis, auto threshold); "
+                         "ukkonen: shard the batch ('data' axis)")
     a.set_defaults(fn=cmd_align)
     p = sub.add_parser("poa", help="POA consensus over a window file")
     p.add_argument("windows")
@@ -258,6 +299,7 @@ def main(argv=None) -> int:
     p.add_argument("--band-width", type=int, default=256)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the POA runs (cuda: the hand-written kernels)")
+    _add_devices_flag(p, "shard windows over this many devices (data axis)")
     p.set_defaults(fn=cmd_poa)
     m = sub.add_parser("map", help="overlap mapping, PAF to stdout: "
                                    "all-vs-all (one input) or "
@@ -283,6 +325,7 @@ def main(argv=None) -> int:
     m.add_argument("--rescue-similarity", type=float, default=0.85)
     m.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where sketch, index, matching and chaining run")
+    _add_devices_flag(m, "shard matching over this many devices (rep axis)")
     m.set_defaults(fn=cmd_map)
 
     sm = sub.add_parser("simulate", help="synthetic genome / noisy reads")
@@ -312,6 +355,7 @@ def main(argv=None) -> int:
     pl.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where mapping and alignment run (cuda: the "
                          "hand-written kernels)")
+    _add_devices_flag(pl, "shard matching over this many devices")
     pl.set_defaults(fn=cmd_pipeline)
 
     co = sub.add_parser("correct",
@@ -338,10 +382,14 @@ def main(argv=None) -> int:
     co.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where mapping, alignment and POA run (cuda: the "
                          "hand-written kernels)")
+    _add_devices_flag(co, "shard matching (rep axis) + POA (data axis) over "
+                          "this many devices")
     co.set_defaults(fn=cmd_correct)
+    return ap
 
-    args = ap.parse_args(argv)
-    initialize_logger(args.log_level)
+
+def _run(args) -> int:
+    """The subcommand, with --timings and --profile-dir."""
     with contextlib.ExitStack() as stack:
         if args.timings:
             from .utils.profiling import stage_times
@@ -353,6 +401,57 @@ def main(argv=None) -> int:
     if args.timings:
         print(json.dumps(st.timings()), file=sys.stderr)
     return rc
+
+
+def _run_ranks(args, argv: list) -> int:
+    """``-d N``: the subcommand in N rank processes; -> the first non-zero
+    rank's exit code, else 0."""
+    from .parallel.multihost import RanksFailed, run_ranks
+    n = args.devices
+    if args.device == "cuda":
+        import torch
+        k = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > k:
+            raise SystemExit(f"--devices {n} but only {k} available")
+        from .ops import _build
+        _build.build()          # once, before the ranks load it
+        devices = [f"cuda:{i}" for i in range(n)]
+    else:
+        devices = ["cpu"] * n
+    try:
+        rcs = run_ranks(_rank_main, n, devices, args=(argv,),
+                        log_level=args.log_level)
+    except RanksFailed as e:
+        return e.first_error
+    return next((rc for rc in rcs if rc), 0)
+
+
+def _rank_main(argv: list) -> int:
+    """One rank of ``-d N``: the subcommand on the rank's mesh; stdout,
+    --timings and --profile-dir on rank 0 only (141 when stdout's reader
+    leaves, as :func:`_console_entry`)."""
+    args = build_parser().parse_args(argv)
+    with contextlib.ExitStack() as stack:
+        if not is_writer():
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+            args.timings, args.profile_dir = False, ""
+        try:
+            rc = _run(args)
+            sys.stdout.flush()
+        except BrokenPipeError:
+            os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+            return 141
+    return rc
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    initialize_logger(args.log_level)
+    if getattr(args, "devices", 1) > 1:
+        return _run_ranks(args, argv)
+    return _run(args)
 
 
 def _console_entry() -> None:

@@ -80,7 +80,8 @@ class Aligner:
     """Batched global aligner on one ``torch.device``."""
 
     def __init__(self, config: AlignerConfig, algorithm: str = "ukkonen",
-                 device="cuda", kernel: str = "diag"):
+                 device="cuda", kernel: str = "diag", mesh=None,
+                 sp_min_len: int | None = None):
         if algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}")
         self.config = config
@@ -89,6 +90,12 @@ class Aligner:
         self.device = torch.device(device)
         # raises for a kernel not in ops.banded.KERNELS
         self._nw, self._decode = resolve(self.device, kernel)
+        # ukkonen shards its batch over the mesh's 'data' axis;
+        # hirschberg-myers takes its long levels' rows from the 'sp' ring
+        # (levels whose side reaches sp_min_len); myers and banded-escalate
+        # run unsharded on every rank, as in the JAX package
+        self.mesh = mesh
+        self.sp_min_len = sp_min_len
         self._queries: list[str] = []
         self._targets: list[str] = []
         self._results: list[Alignment] | None = None
@@ -139,13 +146,14 @@ class Aligner:
         chunk, band buckets in increasing r, each cut into chunks by
         ops.banded.launch_chunks."""
         cfg = self.config
-        buckets: dict[int, list[int]] = {}
-        for b, dl in enumerate(np.abs(np.asarray(qlen) - np.asarray(tlen))):
-            buckets.setdefault(bucket_radius(cfg.band_radius, dl), []).append(b)
-        return [(r, sel) for r, idxs in sorted(buckets.items())
-                for sel in launch_chunks(idxs, cfg.padded_query_length,
-                                         cfg.padded_target_length, r,
-                                         self.kernel)]
+        return banded_plan(self.radii(qlen, tlen), cfg.padded_query_length,
+                           cfg.padded_target_length, self.kernel)
+
+    def radii(self, qlen: np.ndarray, tlen: np.ndarray) -> np.ndarray:
+        """Each problem's adaptive band (:func:`bucket_radius`)."""
+        return np.array([bucket_radius(self.config.band_radius, dl) for dl in
+                         np.abs(np.asarray(qlen) - np.asarray(tlen))],
+                        dtype=np.int64)
 
     def _run_batch(self) -> list[Alignment]:
         if not self._queries:
@@ -158,7 +166,8 @@ class Aligner:
             if self.algorithm == "hirschberg-myers":
                 # the unpadded strings, as the JAX package passes them
                 paths, dists = hirschberg_align_batch(
-                    self._queries, self._targets, dev, kernel)
+                    self._queries, self._targets, dev, kernel,
+                    mesh=self.mesh, sp_min_len=self.sp_min_len)
             elif self.algorithm == "myers":
                 paths, dists = myers_align_batch(
                     q, qlen, t, tlen, self._queries, self._targets, dev,
@@ -185,37 +194,79 @@ class Aligner:
         return out
 
     def _run_ukkonen(self, q, qlen, t, tlen):
-        """Banded NW chunk by chunk of :meth:`_plan`; the batch moves to the
-        device once and only scores and packed paths come back."""
-        dev = self.device
-        qd, qld, td, tld = (torch.from_numpy(a).to(dev)
-                            for a in (q, qlen, t, tlen))
-        B = q.shape[0]
-        paths: list[list[int]] = [[] for _ in range(B)]
-        scores = np.zeros(B, dtype=np.int64)
-        for r, sel in self._plan(qlen, tlen):
-            seld = torch.from_numpy(sel).to(dev)
-            ql, tl = qld[seld], tld[seld]
-            sc, tb = self._nw(qd[seld], ql, td[seld], tl, r)
-            scores[sel] = sc.cpu().numpy()
-            for b, p in zip(sel, self._decode(tb, ql, tl, r)):
-                paths[b] = p
+        """Banded NW at each pair's adaptive band (:func:`banded_align`);
+        with a mesh of more than one rank on 'data', each rank aligns its
+        slice of the batch (parallel/shard.sharded_banded_nw)."""
+        radii = self.radii(qlen, tlen)
+        if self.mesh is not None and self.mesh.shape.get("data", 1) > 1:
+            from ..parallel.shard import sharded_banded_nw
+            scores, paths = sharded_banded_nw(q, qlen, t, tlen, radii,
+                                              self.mesh, self.device,
+                                              self.kernel)
+            return paths, scores
+        scores, paths = banded_align(q, qlen, t, tlen, radii, self.device,
+                                     self.kernel, self._nw, self._decode)
         return paths, scores
+
+
+def banded_plan(radii: np.ndarray, Lq: int, Lt: int, kernel: str) -> list:
+    """(r, indices) per launch for problems of a (Lq, Lt) batch at these
+    radii: band buckets in increasing r, each cut into chunks by
+    ops.banded.launch_chunks."""
+    buckets: dict[int, list[int]] = {}
+    for b, r in enumerate(np.asarray(radii).tolist()):
+        buckets.setdefault(r, []).append(b)
+    return [(r, sel) for r, idxs in sorted(buckets.items())
+            for sel in launch_chunks(idxs, Lq, Lt, r, kernel)]
+
+
+def banded_align(q, qlen, t, tlen, radii, device, kernel: str = "diag",
+                 nw_fn=None, decode_fn=None):
+    """Banded NW of each problem of the packed batch at its radius, chunk
+    by chunk of :func:`banded_plan`, on ``device`` (by ``kernel``'s
+    functions, ops.banded.resolve, unless given); the batch moves to the
+    device once and only scores and packed paths come back.  -> (scores
+    (B,) int64, paths)."""
+    if nw_fn is None:
+        nw_fn, decode_fn = resolve(device, kernel)
+    dev = torch.device(device)
+    qd, qld, td, tld = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in (q, qlen, t, tlen))
+    B = q.shape[0]
+    paths: list[list[int]] = [[] for _ in range(B)]
+    scores = np.zeros(B, dtype=np.int64)
+    for r, sel in banded_plan(radii, q.shape[1], t.shape[1], kernel):
+        seld = torch.from_numpy(sel).to(dev)
+        ql, tl = qld[seld], tld[seld]
+        sc, tb = nw_fn(qd[seld], ql, td[seld], tl, r)
+        scores[sel] = sc.cpu().numpy()
+        for b, p in zip(sel, decode_fn(tb, ql, tl, r)):
+            paths[b] = p
+    return scores, paths
 
 
 def create_aligner(max_query_length: int, max_target_length: int,
                    max_alignments: int,
                    alignment_type: AlignmentType = AlignmentType.GLOBAL_ALIGNMENT,
                    band_radius: int = 64, algorithm: str = "ukkonen",
-                   device="cuda", kernel: str = "diag") -> Aligner:
+                   device="cuda", kernel: str = "diag", mesh=None,
+                   sp_min_len: int | None = None) -> Aligner:
     """Factory mirroring the reference's create_aligner [U].  ``device`` is
     where the DP runs; asking for ``cuda`` where torch finds no card
     raises.  ``kernel`` is the banded-NW kernel, one of
-    ``ops.banded.KERNELS``; any other string raises ValueError."""
+    ``ops.banded.KERNELS``; any other string raises ValueError.
+
+    ``mesh`` (parallel.mesh.make_mesh): with a 'data' axis > 1, ukkonen
+    batches shard across its ranks; with an 'sp' axis > 1,
+    hirschberg-myers levels whose side reaches ``sp_min_len`` (default:
+    align.hirschberg.ring_min_len()) take their rows from the ring
+    wavefront.  Every rank calls with the same pairs and gets every
+    alignment."""
     if alignment_type != AlignmentType.GLOBAL_ALIGNMENT:
         raise ValueError("only global alignment is supported")
     cfg = AlignerConfig(max_query_length=max_query_length,
                         max_target_length=max_target_length,
                         max_alignments=max_alignments,
                         band_radius=band_radius)
-    return Aligner(cfg, algorithm=algorithm, device=device, kernel=kernel)
+    return Aligner(cfg, algorithm=algorithm, device=device, kernel=kernel,
+                   mesh=mesh, sp_min_len=sp_min_len)

@@ -1,5 +1,5 @@
 """Read correction on PyTorch (port of
-``claragenomicsanalysis_tpu/models/correct.py``, without its mesh).
+``claragenomicsanalysis_tpu/models/correct.py``).
 
 All-vs-all map -> per-overlap base-exact re-alignment -> per-read pileup
 windows -> batched POA consensus -> corrected reads (Racon-style
@@ -8,7 +8,12 @@ point's device; the window supports are host NumPy, as in the JAX package.
 ``work_dir`` makes a run resumable: the mapping loop checkpoints each
 (query chunk x target chunk) pair (parallel/manifest.py) and the correction
 each part of reads, in the JAX package's files, and a killed run resumes to
-the same result.
+the same result.  ``mesh`` splits into its two views
+(parallel.mesh.axis_meshes): matching shards over every rank on 'rep'
+(the resumable map too), POA windows over every rank on 'data'; the
+alignments run whole on every rank, as in the JAX package.  The span and
+depth buckets come from the whole input, never from a rank's share, and
+rank 0 alone writes the checkpoint files.
 
 Left out on purpose: ``core.bufferplan.plan_poa_batch`` and the one-behind
 drain's TPU sizing.  A ``Batch`` cuts its own launches by the device bytes
@@ -167,7 +172,7 @@ def depth_bucket(n_seqs: int, max_support: int) -> int:
 
 def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
                     windows_per_dispatch: int | None,
-                    device="cuda") -> tuple[list[str], int]:
+                    device="cuda", mesh=None) -> tuple[list[str], int]:
     """POA consensus for each job (= [backbone, support...]) on ``device``.
     Returns the consensus strings (backbone kept where POA fails or gives
     an empty consensus) and the failure count.
@@ -176,7 +181,8 @@ def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
     (:func:`_polish_batch_size`); a bucket is one batch, or batches of
     ``windows_per_dispatch`` jobs.  A batch enqueues its launches in
     generate_poa and the previous batch is read back after that, so the
-    host packs one batch while the card runs the one before."""
+    host packs one batch while the card runs the one before.  ``mesh``
+    splits each batch's windows over its 'data' axis."""
     kernel = poa_kernel(cfg)
     buckets: dict[int, list[int]] = {}
     for i, seqs in enumerate(jobs):
@@ -204,7 +210,7 @@ def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
             sel = idxs[start:start + wpd]
             chunk = [jobs[i] for i in sel]
             batch = create_batch(batch_size=bs, max_poas=len(chunk),
-                                 device=device, kernel=kernel)
+                                 device=device, kernel=kernel, mesh=mesh)
             for seqs in chunk:
                 batch.add_poa_group(seqs)
             batch.generate_poa()
@@ -221,7 +227,7 @@ def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
 
 def _correct_part(read_ids: list[int], by_query: dict[int, list[Overlap]],
                   parser: FastaParser, cfg: CorrectConfig,
-                  windows_per_dispatch: int | None, device):
+                  windows_per_dispatch: int | None, device, mesh=None):
     """Correct one contiguous part of reads.  Returns (seqs, n_windows,
     n_polished, n_failed)."""
     part_overlaps: list[Overlap] = []
@@ -256,7 +262,7 @@ def _correct_part(read_ids: list[int], by_query: dict[int, list[Overlap]],
 
     with trace_range("correct.poa"):
         cons, n_failed = _polish_windows(jobs, cfg, windows_per_dispatch,
-                                         device)
+                                         device, mesh)
     for (slot, wi), c in zip(slots, cons):
         pieces[slot][wi] = c
     seqs = ["".join(p) for p in pieces]
@@ -267,12 +273,18 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
                   work_dir: str | None = None, part_size: int = 64,
                   windows_per_dispatch: int | None = None,
                   fail_after_parts: int | None = None,
-                  device="cuda") -> CorrectResult:
+                  device="cuda", mesh=None) -> CorrectResult:
     """Correct every read of `parser` against all others on ``device``.
 
     work_dir: enables checkpoint/resume (map pairs + read parts).
-    fail_after_parts: fault-injection hook for resume tests."""
+    fail_after_parts: fault-injection hook for resume tests.
+    mesh: rep-sharded matching and data-sharded POA (every rank calls with
+    the same reads and gets every corrected read)."""
+    from ..parallel.mesh import axis_meshes
+    from ..parallel.multihost import is_writer
     device = resolve_device(device)
+    mesh_data, mesh_rep = axis_meshes(mesh)
+    writer = is_writer()
     n = parser.get_num_sequences()
     names = [parser.get_sequence_by_id(i).name for i in range(n)]
 
@@ -281,10 +293,10 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
             from ..parallel.manifest import map_all_vs_all_resumable
             overlaps, _, _ = map_all_vs_all_resumable(
                 parser, cfg.mapper, os.path.join(work_dir, "map"),
-                device=device)
+                device=device, mesh=mesh_rep)
         else:
-            overlaps = map_all_vs_all(parser, cfg.mapper,
-                                      device=device).overlaps
+            overlaps = map_all_vs_all(parser, cfg.mapper, device=device,
+                                      mesh=mesh_rep).overlaps
 
     # supports come from overlaps where the corrected read is the QUERY
     # (all-vs-all emits both orders of each pair, so every partner appears)
@@ -293,15 +305,15 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
         if within_length(o, cfg.max_alignment_length):
             by_query.setdefault(o.query_read_id, []).append(o)
 
+    parts = [list(range(s, min(s + part_size, n)))
+             for s in range(0, n, part_size)]
     manifest_path = (os.path.join(work_dir, "correct_manifest.json")
                      if work_dir else None)
     done: dict[str, bool] = {}
-    if manifest_path and os.path.exists(manifest_path):
-        with open(manifest_path) as f:
-            done = json.load(f)
-
-    parts = [list(range(s, min(s + part_size, n)))
-             for s in range(0, n, part_size)]
+    if manifest_path:
+        from ..parallel.manifest import read_done
+        done = read_done(manifest_path, [str(pi) for pi in range(len(parts))],
+                         mesh_data)
     seqs: list[str | None] = [None] * n
     totals = [0, 0, 0]
     computed = 0
@@ -316,13 +328,13 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
         else:
             part_seqs, *stats = _correct_part(
                 read_ids, by_query, parser, cfg, windows_per_dispatch,
-                device)
-            if part_file:
-                with open(part_file, "w") as f:
-                    json.dump({"seqs": part_seqs, "stats": stats}, f)
+                device, mesh_data)
+            if part_file and writer:
+                from ..parallel.manifest import write_aside
+                write_aside(part_file, json.dumps({"seqs": part_seqs,
+                                                   "stats": stats}))
                 done[str(pi)] = True
-                with open(manifest_path, "w") as f:
-                    json.dump(done, f)
+                write_aside(manifest_path, json.dumps(done))
             computed += 1
             if fail_after_parts is not None and computed >= fail_after_parts:
                 raise RuntimeError("injected failure for resume test")

@@ -308,7 +308,8 @@ class IndexCache:
         if idx is None:
             idx = Index.create_index(parser, first, past_last, cfg,
                                      device=self.device)
-            if self.store_dir:
+            from ..parallel.multihost import is_writer
+            if self.store_dir and is_writer():      # rank 0 alone writes
                 from ..parallel.index_store import index_key, save_index
                 save_index(idx, self.store_dir,
                            index_key(parser, first, past_last, cfg))
@@ -348,11 +349,16 @@ class Matcher:
     @classmethod
     def create_matcher(cls, query_index: Index, target_index: Index,
                        cfg: MapperConfig, cap: int | None = None,
-                       device="cuda") -> "Matcher":
+                       device="cuda", mesh=None) -> "Matcher":
         """Anchors of every (query element, target element) pair of equal
         representation, at most ``cap`` of them (default: four times the
         query index's capacity, max(1024, pow2(n_elems)), as in the JAX
-        package)."""
+        package).  ``mesh`` with a 'rep' axis > 1: the target index splits
+        into sorted-representation blocks over its ranks, each rank counts
+        and expands its block's anchors (at most ``cap`` a rank, as in the
+        JAX package) and every rank gets all blocks' anchors
+        (parallel/shard.sharded_anchors); below the cap the anchor set, and
+        all output, is the one-rank set."""
         device = resolve_device(device)
         qa = query_index.to(device)._arrays
         ta = target_index.to(device)._arrays
@@ -360,6 +366,11 @@ class Matcher:
             cp = max(1024, 1 << (max(qa["n_elems"], 1) - 1).bit_length())
             cap = round_up(4 * cp, 128)
         with trace_range("mapper.match"):
+            if rep_sharded(mesh):
+                from ..parallel.shard import sharded_anchors
+                anchors, total, _ = sharded_anchors(qa, ta, cfg, mesh,
+                                                    cap=cap)
+                return cls(anchors, total, min(cap, total), cap)
             with trace_range("mapper.match.count"):
                 lo, cum, total = map_ops.match_count(qa, ta)
                 total = int(total)
@@ -402,10 +413,38 @@ class Overlapper:
                 min_overlap_fraction_num=frac.numerator,
                 min_overlap_fraction_den=frac.denominator,
                 max_gap=cfg.max_anchor_gap)
+        return Overlapper.compact_rows(out)
+
+    @staticmethod
+    def compact_rows(out: dict, mesh=None) -> np.ndarray:
+        """A masked chain output (ops.map_ops.chain_anchors, on the device)
+        as the canonical (8, n_valid) host rows.  ``mesh`` with a 'rep'
+        axis > 1: ``out`` is this rank's part of a routed chain
+        (parallel/shard.sharded_match_chain), and every rank gets the rows
+        of all its rep line's ranks."""
         with trace_range("mapper.compact"):
             rows = map_ops.compact_overlaps_gather(
-                out, int(map_ops.count_valid(out))).cpu().numpy()
+                out, int(map_ops.count_valid(out)))
+            if rep_sharded(mesh):
+                from ..parallel.comm import all_gather
+                rows = torch.cat(all_gather(rows.T, mesh.group("rep")),
+                                 0).T
+            rows = rows.cpu().numpy()
         return rows[:, _canonical_order(rows)]
+
+    @staticmethod
+    def compact_rows_local(out: dict, mesh) -> dict:
+        """This rank's part of a routed chain as {its rep index: canonical
+        (8, n_valid) rows}, on the rank that owns the part (data and sp
+        coordinates 0; the others, copies, get {}).  No rank holds the
+        whole overlap set.  Each rank owns a disjoint ascending range of
+        query reads, so the parts in rep order are compact_rows(out, mesh)."""
+        if mesh.axis_index("data") or mesh.axis_index("sp"):
+            return {}
+        with trace_range("mapper.compact_local"):
+            rows = map_ops.compact_overlaps_gather(
+                out, int(map_ops.count_valid(out))).cpu().numpy()
+        return {mesh.axis_index("rep"): rows[:, _canonical_order(rows)]}
 
     @staticmethod
     def rows_to_overlaps(rows: np.ndarray) -> list[Overlap]:
@@ -601,19 +640,53 @@ class MapResult:
     rows: np.ndarray | None = None
 
 
+def rep_sharded(mesh) -> bool:
+    """Whether matching shards over ``mesh``: it has more than one rank on
+    its 'rep' axis."""
+    return mesh is not None and mesh.shape.get("rep", 1) > 1
+
+
+def pair_rows(qidx: Index, tidx: Index, cfg: MapperConfig, cap: int,
+              device, mesh=None):
+    """One (query chunk, target chunk) pair: Matcher then Overlapper, or,
+    where matching shards over ``mesh`` (:func:`rep_sharded`),
+    :func:`_mesh_overlap_rows`.  -> (canonical rows, status)."""
+    if rep_sharded(mesh):
+        return _mesh_overlap_rows(qidx, tidx, cfg, mesh, cap)
+    matcher = Matcher.create_matcher(qidx, tidx, cfg, cap=cap, device=device)
+    return (Overlapper.get_overlap_rows(matcher.anchors(), cfg),
+            matcher.status)
+
+
+def _mesh_overlap_rows(qidx: Index, tidx: Index, cfg: MapperConfig, mesh,
+                       cap: int):
+    """One chunk pair on a mesh: rep-sharded matching, anchors routed to
+    the rank that owns their query reads, chained there
+    (parallel/shard.sharded_match_chain), the ranks' rows merged.
+    -> (canonical rows, every rank's; status)."""
+    from ..parallel.shard import sharded_match_chain
+    with trace_range("mapper.match_chain_mesh"):
+        out, overflow = sharded_match_chain(
+            qidx._arrays, tidx._arrays, cfg, mesh, cap=cap,
+            n_query_reads=len(qidx.read_lengths),
+            first_read=qidx.first_read_id)
+    status = (StatusType.EXCEEDED_MAX_ANCHORS if overflow
+              else StatusType.SUCCESS)
+    return Overlapper.compact_rows(out, mesh), status
+
+
 def _map_pairs(pairs, cfg: MapperConfig, max_anchors: int, device,
-               cache: IndexCache) -> MapResult:
+               cache: IndexCache, mesh=None) -> MapResult:
     """Index -> Matcher -> Overlapper over ((parser, first, past_last) x 2)
-    pairs, merged in canonical order."""
+    pairs, merged in canonical order; each pair through :func:`pair_rows`."""
     statuses: list[StatusType] = []
     all_rows = []
     for (qp, qf, ql), (tp, tf, tl) in pairs:
         qidx = cache.get_or_create(qp, qf, ql, cfg)
         tidx = cache.get_or_create(tp, tf, tl, cfg)
-        matcher = Matcher.create_matcher(qidx, tidx, cfg, cap=max_anchors,
-                                         device=device)
-        statuses.append(matcher.status)
-        all_rows.append(Overlapper.get_overlap_rows(matcher.anchors(), cfg))
+        rows, status = pair_rows(qidx, tidx, cfg, max_anchors, device, mesh)
+        statuses.append(status)
+        all_rows.append(rows)
     rows = (np.concatenate(all_rows, axis=1) if all_rows
             else np.zeros((8, 0), np.int32))
     rows = rows[:, _canonical_order(rows)]
@@ -624,16 +697,19 @@ def _map_pairs(pairs, cfg: MapperConfig, max_anchors: int, device,
 def map_all_vs_all(parser: FastaParser, cfg: MapperConfig,
                    max_anchors: int = 1 << 24,
                    index_store_dir: str | None = None,
-                   device="cuda") -> MapResult:
+                   device="cuda", mesh=None) -> MapResult:
     """The cudamapper main loop: chunk the reads by the index-size budget,
     run every (query chunk x target chunk) pair through Index -> Matcher ->
-    Overlapper on ``device``, merge deterministically."""
+    Overlapper on ``device``, merge deterministically.  ``mesh``
+    (parallel.mesh.make_mesh): matching shards over its 'rep' axis, every
+    rank calling with the same reads and getting every overlap; the output
+    equals one rank's bit for bit."""
     device = resolve_device(device)
     chunks = [(parser, f, p) for f, p in
               parser.get_chunks(cfg.index_size_mb * 1_000_000)]
     cache = IndexCache(store_dir=index_store_dir, device=device)
     return _map_pairs(((q, t) for q in chunks for t in chunks), cfg,
-                      max_anchors, device, cache)
+                      max_anchors, device, cache, mesh)
 
 
 def map_query_vs_target(query_parser: FastaParser,
@@ -641,11 +717,12 @@ def map_query_vs_target(query_parser: FastaParser,
                         max_anchors: int = 1 << 24,
                         target_index_size_mb: int | None = None,
                         index_store_dir: str | None = None,
-                        device="cuda") -> MapResult:
+                        device="cuda", mesh=None) -> MapResult:
     """Two-file mapping: every query read against every target read, with
     separate query / target index budgets (``target_index_size_mb``
     defaults to the query's).  Self-mapping suppression is off: equal
-    numeric read ids in the two files are unrelated reads."""
+    numeric read ids in the two files are unrelated reads.  ``mesh``: as
+    for :func:`map_all_vs_all`."""
     device = resolve_device(device)
     qchunks = [(query_parser, f, p) for f, p in
                query_parser.get_chunks(cfg.index_size_mb * 1_000_000)]
@@ -656,7 +733,7 @@ def map_query_vs_target(query_parser: FastaParser,
     cfg = replace(cfg, skip_self_mappings=False)
     cache = IndexCache(store_dir=index_store_dir, device=device)
     return _map_pairs(((q, t) for q in qchunks for t in tchunks), cfg,
-                      max_anchors, device, cache)
+                      max_anchors, device, cache, mesh)
 
 
 def overlaps_to_paf(overlaps: list[Overlap], parser: FastaParser,

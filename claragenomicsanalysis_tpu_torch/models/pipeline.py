@@ -65,13 +65,18 @@ def within_length(o: Overlap, max_alignment_length: int) -> bool:
 
 
 def run_pipeline(parser: FastaParser, cfg: PipelineConfig,
-                 batch_size: int = 2048, device="cuda") -> PipelineResult:
+                 batch_size: int = 2048, device="cuda",
+                 mesh=None) -> PipelineResult:
     """Map all-vs-all on ``device``, then globally align each overlap's
     spans there (``myers``), a launch batch per span bucket and chunk of
-    ``batch_size``."""
+    ``batch_size``.  ``mesh``: matching shards over its 'rep' view
+    (parallel.mesh.axis_meshes)."""
+    from ..parallel.mesh import axis_meshes
     device = resolve_device(device)
+    _, mesh_rep = axis_meshes(mesh)
     with trace_range("pipeline.map"):
-        res = map_all_vs_all(parser, cfg.mapper, device=device)
+        res = map_all_vs_all(parser, cfg.mapper, device=device,
+                             mesh=mesh_rep)
     overlaps = [o for o in res.overlaps
                 if within_length(o, cfg.max_alignment_length)]
     spans = overlap_spans(overlaps, parser)

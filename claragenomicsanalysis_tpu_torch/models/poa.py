@@ -92,7 +92,7 @@ class Batch:
                  scores: PoaScores | None = None,
                  output_mask: int = OutputType.CONSENSUS,
                  max_poas: int = 1024, banded_alignment: bool = False,
-                 device="cuda", kernel: str = "lockstep"):
+                 device="cuda", kernel: str = "lockstep", mesh=None):
         self.output_mask = OutputType(output_mask)
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, not "
@@ -108,6 +108,7 @@ class Batch:
                                "CUDA device")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        self.mesh = mesh        # windows split over its 'data' axis
         self._batch_id = next(Batch._next_id)
         self._groups: list[tuple[list[str], list[list[int]]]] = []
         self._host_status: list[StatusType] = []
@@ -177,32 +178,46 @@ class Batch:
     def _msa(self) -> bool:
         return bool(self.output_mask & OutputType.MSA)
 
-    def _launches(self):
+    def _launches(self, arrays=None):
         """Each launch's windows, as (seqs, weights, lens, n_seqs) tensors on
-        the batch's device."""
-        arrays = [torch.from_numpy(a).to(self.device)
-                  for a in self._pack_arrays()]
-        for c in launch_chunks(len(self._groups), self.batch_size, self._msa,
-                               self.scores, self.kernel):
+        the batch's device (``arrays``: packed windows, default all)."""
+        if arrays is None:
+            arrays = self._pack_arrays()
+        arrays = [torch.from_numpy(a).to(self.device) for a in arrays]
+        for c in launch_chunks(arrays[0].shape[0], self.batch_size,
+                               self._msa, self.scores, self.kernel):
             yield tuple(a[c.start:c.stop] for a in arrays)
+
+    def _run(self, *arrays):
+        """The route over packed windows -> their six outputs (consensus
+        codes, coverage, lengths, MSA rows, column counts, status) as
+        tensors on the device, enqueued."""
+        bs, sc, banded = self.batch_size, self.scores, self.banded_alignment
+        if self.kernel == "window":
+            outs = [poa_window(*launch, bs, sc, banded, self._msa)
+                    for launch in self._launches(arrays)]
+        else:
+            outs = [run_windows(bs, sc, banded, *launch, self._msa)[:6]
+                    for launch in self._launches(arrays)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
 
     def generate_poa(self) -> None:
         """Pack the windows and enqueue their launches; returns without
-        waiting for the device."""
+        waiting for the device.  With a mesh of more than one rank on
+        'data', each rank runs its slice of the windows and the outputs
+        are gathered here (parallel/shard.sharded_poa), which waits."""
         if not self._groups:
             self._out = (np.zeros((0, 0), np.int32),) * 2 + (
                 np.zeros(0, np.int32), np.zeros((0, 0, 0), np.int32)) + (
                 np.zeros(0, np.int32),) * 2
             return
-        bs, sc, banded = self.batch_size, self.scores, self.banded_alignment
         with trace_range("poa.generate"):
-            if self.kernel == "window":
-                outs = [poa_window(*launch, bs, sc, banded, self._msa)
-                        for launch in self._launches()]
+            if self.mesh is not None and self.mesh.shape.get("data", 1) > 1:
+                from ..parallel.shard import sharded_poa
+                self._out = sharded_poa(self._run, *self._pack_arrays(),
+                                        self.mesh)
             else:
-                outs = [run_windows(bs, sc, banded, *launch, self._msa)[:6]
-                        for launch in self._launches()]
-            self._out_dev = tuple(torch.cat(parts) for parts in zip(*outs))
+                self._out_dev = self._run(*self._pack_arrays())
 
     def _ensure(self):
         if self._out is None:
@@ -309,12 +324,15 @@ def create_batch(batch_size: BatchSize | None = None,
                  mismatch_score: int | None = None,
                  match_score: int | None = None,
                  banded_alignment: bool = False,
-                 device="cuda", kernel: str = "lockstep") -> Batch:
-    """Factory with the JAX package's arguments (its ``mesh`` excepted); the
-    band width comes from BatchSize.band_width.  ``device`` is where the
-    work runs; ``kernel`` (``"lockstep"`` or ``"window"``, the counterpart
-    of the JAX ``backend="pallas2"`` / ``"pallas"``) names which hand-written
-    kernels run on a card, with the same outputs either way."""
+                 device="cuda", kernel: str = "lockstep",
+                 mesh=None) -> Batch:
+    """Factory with the JAX package's arguments; the band width comes from
+    BatchSize.band_width.  ``device`` is where the work runs; ``kernel``
+    (``"lockstep"`` or ``"window"``, the counterpart of the JAX
+    ``backend="pallas2"`` / ``"pallas"``) names which hand-written kernels
+    run on a card, with the same outputs either way.  ``mesh``
+    (parallel.mesh.make_mesh): windows split over its 'data' axis, every
+    rank adding the same windows and reading every result."""
     if scores is None and any(v is not None for v in
                               (gap_score, mismatch_score, match_score)):
         d = PoaScores()
@@ -323,4 +341,4 @@ def create_batch(batch_size: BatchSize | None = None,
             mismatch_score=mismatch_score if mismatch_score is not None else d.mismatch_score,
             gap_score=gap_score if gap_score is not None else d.gap_score)
     return Batch(batch_size, scores, output_mask, max_poas, banded_alignment,
-                 device, kernel)
+                 device, kernel, mesh)

@@ -36,16 +36,20 @@ def index_key(parser, first: int, past_last: int, cfg: MapperConfig) -> str:
 
 
 def save_index(index: Index, store_dir: str, key: str) -> str:
+    """Write the index under its key; the file appears whole (written
+    aside, then renamed), so a rank loading it never reads half a file."""
     os.makedirs(store_dir, exist_ok=True)
     path = os.path.join(store_dir, f"index_{key}.npz")
+    tmp = os.path.join(store_dir, f"index_{key}.{os.getpid()}.tmp.npz")
     arrays = {f"arr_{k}": index._arrays[k].cpu().numpy().astype(dt)
               for k, dt in _DTYPES.items()}
     np.savez_compressed(
-        path,
+        tmp,
         first_read_id=index.first_read_id,
         read_lengths=np.array(index.read_lengths, dtype=np.int64),
         read_names=np.array(index.read_names, dtype=object),
         arr_n_elems=np.int32(index.n_elems), **arrays)
+    os.replace(tmp, path)
     return path
 
 
