@@ -1,0 +1,7 @@
+"""peak_mem_gib.overlap: `max_memory_allocated` over the window, in GiB."""
+
+from cga_bench.readers import peak_gib
+
+
+def read(rec):
+    return peak_gib(rec)
