@@ -147,8 +147,8 @@ Phases, one line or more each:
  23. the multi-rank paths (claragenomicsanalysis_tpu_torch/parallel/):
      two ranks on cuda:0 (gloo, explicit devices), or one a card (NCCL)
      where torch finds two, each its own process (multihost.run_ranks),
-     each rank's launch counts zeroed just before a path and read just
-     after: (a) phase 20's map at full width on the 'rep' axis, rows
+     each rank's launches counted in a ``stage_times()`` block around
+     a path: (a) phase 20's map at full width on the 'rep' axis, rows
      equal to phase 20's, its wall, Mbp/s, each rank's stages, the
      all_to_all's bytes and ms and peak memory; (b) phase 22's correction
      on both views (map on 'rep', POA on 'data'), corrected reads equal to
@@ -173,8 +173,8 @@ describing every kernel: under ``paths``, for each main path (``ukkonen``,
 ``poa_window_msa``, ``poa_window_deep``, ``ukkonen_row``, ``pipeline``,
 ``correct``, and phase 23's ``correct_2ranks``, ``ukkonen_data2``,
 ``poa_data2``, ``poa_window_data2`` and ``hirschberg_sp2``, launches and
-run time summed over the ranks, the replay rank 0's), its launches in that run (counts zeroed just before it, read
-just after), the kernel's device time in that run (``run_ms``) and, at
+run time summed over the ranks, the replay rank 0's), its launches in that run (the ``launch.*`` counters of a
+``stage_times()`` block around it), the kernel's device time in that run (``run_ms``) and, at
 that path's largest launch, the plan it took and the kernel's time, plain
 time and bound (the least time the card could take for the same work; at
 ``pipeline`` and ``correct`` for the kernel that spent the most device
@@ -317,34 +317,11 @@ POA_KERNELS = ("poa_topsort", "poa_nwtb", "poa_add", "poa_consensus",
                "poa_msa", "poa_window")
 
 
-def wrappers() -> dict:
-    """The kernel wrappers, by kernel name; each counts its launches."""
-    from claragenomicsanalysis_tpu_torch.ops import (myers, nw_diag, nw_row,
-                                                     poa_add, poa_consensus,
-                                                     poa_msa, poa_nwtb,
-                                                     poa_topsort, poa_window,
-                                                     tb_decode)
-    return {"nw_diag": nw_diag.banded_nw_diag,
-            "tb_decode": tb_decode.decode_diag,
-            "nw_row": nw_row.banded_nw_row,
-            "tb_decode_row": tb_decode.decode_row,
-            "myers": myers.myers_bottom_row,
-            "poa_topsort": poa_topsort.topsort,
-            "poa_nwtb": poa_nwtb.graph_nw_traceback,
-            "poa_add": poa_add.add_alignment,
-            "poa_consensus": poa_consensus.consensus,
-            "poa_msa": poa_msa.msa,
-            "poa_window": poa_window.poa_window}
-
-
-def zero_launches() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
-
-
-def read_launches(names=ALIGNER_KERNELS) -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()
-            if name in names}
+def read_launches(st, names=ALIGNER_KERNELS) -> dict:
+    """Launches of the kernels ``names`` in the ``stage_times()`` block
+    ``st`` (``st.launches()``), 0 for one never launched."""
+    launched = st.launches()
+    return {name: launched.get(name, 0) for name in names}
 
 
 def bound(ops: float, nbytes: float, sm_mhz: float) -> tuple[float, str]:
@@ -357,18 +334,11 @@ def bound(ops: float, nbytes: float, sm_mhz: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def zero_hirschberg() -> None:
-    from claragenomicsanalysis_tpu_torch.align.hirschberg import \
-        hirschberg_align_batch
-    hirschberg_align_batch.pairs = hirschberg_align_batch.levels = 0
-
-
-def read_hirschberg() -> tuple[int, int]:
-    """(pairs aligned by Hirschberg, split levels run) since the last
-    zero_hirschberg()."""
-    from claragenomicsanalysis_tpu_torch.align.hirschberg import \
-        hirschberg_align_batch
-    return hirschberg_align_batch.pairs, hirschberg_align_batch.levels
+def read_hirschberg(st) -> tuple[int, int]:
+    """(pairs aligned by Hirschberg, split levels run) in the
+    ``stage_times()`` block ``st``."""
+    return (st.counters.get("hirschberg.pairs", 0),
+            st.counters.get("hirschberg.levels", 0))
 
 
 def check_paths(results, pairs, what: str):
@@ -650,23 +620,23 @@ def phase_golden():
     counted."""
     from claragenomicsanalysis_tpu_torch import cli
     from claragenomicsanalysis_tpu_torch.models import aligner
+    from claragenomicsanalysis_tpu_torch.utils.profiling import stage_times
     data = os.path.join(ROOT, "data")
     with open(os.path.join(data, "golden", "sample_align.txt")) as f:
         golden = f.read()
     create = aligner.create_aligner
     for kernel in ("diag", "row"):
         buf = io.StringIO()
-        zero_launches()
         aligner.create_aligner = lambda *a, **k: create(*a, kernel=kernel,
                                                         **k)
         try:
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), stage_times() as st:
                 rc = cli.main(["align", f"{data}/sample_queries.fasta",
                                f"{data}/sample_targets.fasta",
                                "--band-radius", "64", "--device", "cuda"])
         finally:
             aligner.create_aligner = create
-        launches = read_launches()
+        launches = read_launches(st)
         same = rc == 0 and buf.getvalue() == golden
         print(f"phase 4 golden: align --device cuda through create_aligner("
               f"..., kernel=\"{kernel}\") vs data/golden/sample_align.txt: "
@@ -724,7 +694,8 @@ def phase_main(pairs, sm_mhz: float):
     from claragenomicsanalysis_tpu_torch import create_aligner
     from claragenomicsanalysis_tpu_torch.ops import nw_diag, tb_decode
     from claragenomicsanalysis_tpu_torch.ops.convert import from_reference
-    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    from claragenomicsanalysis_tpu_torch.utils.profiling import (kernel_times,
+                                                                 stage_times)
 
     n = len(pairs)
     max_q = max(len(a) for a, _ in pairs)
@@ -735,14 +706,13 @@ def phase_main(pairs, sm_mhz: float):
     settle_heap()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
     t0 = time.perf_counter()
-    with kernel_times() as kt:
+    with kernel_times() as kt, stage_times() as st:
         aligner.align_all()
         results = aligner.get_alignments()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches(st)
     peak = torch.cuda.max_memory_allocated()
     plan = aligner._plan(np.array([len(a) for a, _ in pairs]),
                          np.array([len(b) for _, b in pairs]))
@@ -1057,7 +1027,8 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
     from claragenomicsanalysis_tpu_torch import create_aligner
     from claragenomicsanalysis_tpu_torch.align.hirschberg import BASE_Q
     from claragenomicsanalysis_tpu_torch.ops.convert import from_reference
-    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    from claragenomicsanalysis_tpu_torch.utils.profiling import (kernel_times,
+                                                                 stage_times)
 
     n = len(pairs)
     aligner = create_aligner(max(len(a) for a, _ in pairs),
@@ -1069,16 +1040,14 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
     settle_heap()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    zero_hirschberg()
     t0 = time.perf_counter()
-    with kernel_times() as kt:
+    with kernel_times() as kt, stage_times() as st:
         aligner.align_all()
         results = aligner.get_alignments()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
-    n_hirsch, levels = read_hirschberg()
+    launches = read_launches(st)
+    n_hirsch, levels = read_hirschberg(st)
     peak = torch.cuda.max_memory_allocated()
     bases = sum(len(a) + len(b) for a, b in pairs)
     print(f"phase 7 main path (myers): {n} alignments in {wall:.3f} s = "
@@ -1163,12 +1132,12 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
 
     sub = pairs[:N_SUBSET]
     for algorithm in ("hirschberg-myers", "banded-escalate"):
-        zero_hirschberg()
-        _, res, w = run_aligner(sub, algorithm)
+        with stage_times() as st:
+            _, res, w = run_aligner(sub, algorithm)
         same = all((r.path, r.edit_distance) == (m.path, m.edit_distance)
                    for r, m in zip(res, results))
         print(f"phase 7 {algorithm} on {len(sub)} of these pairs: "
-              f"{w:.3f} s, routed to Hirschberg {read_hirschberg()[0]}, "
+              f"{w:.3f} s, routed to Hirschberg {read_hirschberg(st)[0]}, "
               f"paths and distances equal myers': {same}")
         check(same, f"{algorithm} differs from myers on the subset")
     return per, results
@@ -1177,12 +1146,13 @@ def phase_myers_main(pairs, ukk, sm_mhz: float):
 def phase_short_reads():
     """Phase 8: 0.5-1 kb pairs, where the rule keeps pairs banded."""
     import numpy as np
+    from claragenomicsanalysis_tpu_torch.utils.profiling import stage_times
     pairs = main_path_pairs(N_SHORT, SEED + 2, 500, 1000)
     out = {}
     for algorithm in ("ukkonen", "myers", "banded-escalate"):
-        zero_hirschberg()
-        aligner, res, w = run_aligner(pairs, algorithm)
-        routed = read_hirschberg()[0]
+        with stage_times() as st:
+            aligner, res, w = run_aligner(pairs, algorithm)
+        routed = read_hirschberg(st)[0]
         check_paths(res, pairs, algorithm)
         out[algorithm] = res
         print(f"phase 8 short reads ({algorithm}): {len(pairs)} pairs of "
@@ -1248,7 +1218,8 @@ def phase_c8_align(sm_mhz: float) -> dict:
     timed with its bound.  -> kernel name -> a list of variant figures."""
     import numpy as np
     from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row
-    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    from claragenomicsanalysis_tpu_torch.utils.profiling import (kernel_times,
+                                                                 stage_times)
     rng = np.random.default_rng(SEED + 17)
     # the target is 16,385 N (which match nothing) and then the query's
     # source: every optimal path deletes the N first, so Hirschberg's first
@@ -1261,8 +1232,7 @@ def phase_c8_align(sm_mhz: float) -> dict:
     for algorithm in ("ukkonen", "myers", "hirschberg-myers",
                       "banded-escalate"):
         for kernel in ("diag", "row"):
-            zero_launches()
-            with kernel_times() as kt:
+            with kernel_times() as kt, stage_times() as st:
                 _, res, w = run_aligner(pair, algorithm, kernel=kernel)
             check_paths(res, pair, f"C8 {algorithm} {kernel}")
             out[(algorithm, kernel)] = res[0]
@@ -1272,7 +1242,7 @@ def phase_c8_align(sm_mhz: float) -> dict:
                 largest[(name, algorithm)] = args
             print(f"phase 17 C8 {algorithm} (kernel=\"{kernel}\"): "
                   f"{w:.3f} s, distance {res[0].edit_distance}, launches "
-                  f"{read_launches()}, largest {name} launch r={args[4]} "
+                  f"{read_launches(st)}, largest {name} launch r={args[4]} "
                   f"B={args[0].shape[0]} Lq={args[0].shape[1]} "
                   f"Lt={args[2].shape[1]}")
     dists = {r.edit_distance for r in out.values()}
@@ -2024,7 +1994,8 @@ def phase_c8_poa(sm_mhz: float) -> dict:
     from claragenomicsanalysis_tpu_torch.core.config import BatchSize
     from claragenomicsanalysis_tpu_torch.ops import (poa_consensus, poa_msa,
                                                      poa_nwtb, poa_topsort)
-    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    from claragenomicsanalysis_tpu_torch.utils.profiling import (kernel_times,
+                                                                 stage_times)
     variants = {}
     for blen, compare in ((2_048, True), (9_000, False)):
         bs = BatchSize(max_sequence_size=blen, max_sequences_per_poa=3)
@@ -2037,12 +2008,11 @@ def phase_c8_poa(sm_mhz: float) -> dict:
             plan["poa_msa"] = poa_msa.msa_plan(2, N, P, A, 3, L)
         _, _, arrays = poa_window_arrays(2, blen - 8, 3, blen // 40, L,
                                          SEED + 50 + blen)
-        zero_launches()
         t0 = time.perf_counter()
-        with kernel_times() as kt:
+        with kernel_times() as kt, stage_times() as st:
             out, probed = run_poa_arrays(bs, False, arrays, compare,
                                          msa=compare)
-            launches = read_launches(POA_KERNELS)
+            launches = read_launches(st, POA_KERNELS)
             dev_ms = kt.ms()
         status = out[5].tolist()
         print(f"phase 18 C8 poa: 2 windows of 3 x {blen - 8} bases at cli "
@@ -2143,7 +2113,8 @@ def run_poa_batch(bs, windows, banded: bool, msa: bool, kernel: str,
     import torch
     from claragenomicsanalysis_tpu_torch.core.status import OutputType
     from claragenomicsanalysis_tpu_torch.models import poa
-    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    from claragenomicsanalysis_tpu_torch.utils.profiling import (kernel_times,
+                                                                 stage_times)
     mask = OutputType.CONSENSUS | (OutputType.MSA if msa else 0)
     batch = poa.create_batch(bs, output_mask=mask, max_poas=len(windows),
                              banded_alignment=banded, device=device,
@@ -2153,15 +2124,14 @@ def run_poa_batch(bs, windows, banded: bool, msa: bool, kernel: str,
     settle_heap()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
     t0 = time.perf_counter()
-    with kernel_times() as kt:
+    with kernel_times() as kt, stage_times() as st:
         batch.generate_poa()
         cons, covs, stats = batch.get_consensus()
         msas = batch.get_msa()[0] if msa else None
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(POA_KERNELS)
+    launches = read_launches(st, POA_KERNELS)
     check(kt.count() == {k: v for k, v in launches.items() if v},
           f"timed launches {kt.count()} != counted {launches}")
     return dict(cons=cons, covs=covs, stats=stats, msas=msas, wall=wall,
@@ -2551,7 +2521,8 @@ def phase_row(pairs, ukk, myers_results, sm_mhz: float) -> dict:
     import numpy as np
     import torch
     from claragenomicsanalysis_tpu_torch import create_aligner
-    from claragenomicsanalysis_tpu_torch.utils.profiling import kernel_times
+    from claragenomicsanalysis_tpu_torch.utils.profiling import (kernel_times,
+                                                                 stage_times)
     n = len(pairs)
     aligner = create_aligner(max(len(a) for a, _ in pairs),
                              max(len(b) for _, b in pairs), n,
@@ -2561,14 +2532,13 @@ def phase_row(pairs, ukk, myers_results, sm_mhz: float) -> dict:
     settle_heap()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
     t0 = time.perf_counter()
-    with kernel_times() as kt:
+    with kernel_times() as kt, stage_times() as st:
         aligner.align_all()
         results = aligner.get_alignments()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches(st)
     peak = torch.cuda.max_memory_allocated()
     plan = aligner._plan(np.array([len(a) for a, _ in pairs]),
                          np.array([len(b) for _, b in pairs]))
@@ -2613,17 +2583,16 @@ def phase_row(pairs, ukk, myers_results, sm_mhz: float) -> dict:
 
     sub = pairs[:N_SUBSET]
     for algorithm in ("myers", "hirschberg-myers", "banded-escalate"):
-        zero_launches()
-        zero_hirschberg()
-        _, res, w = run_aligner(sub, algorithm, kernel="row")
-        ran = read_launches()
+        with stage_times() as st:
+            _, res, w = run_aligner(sub, algorithm, kernel="row")
+        ran = read_launches(st)
         same = all((r.status, r.path, r.edit_distance)
                    == (m.status, m.path, m.edit_distance)
                    for r, m in zip(res, myers_results))
         print(f"phase 16 {algorithm} (kernel=\"row\") on {len(sub)} of "
               f"these pairs: {w:.3f} s, routed to Hirschberg "
-              f"{read_hirschberg()[0]}, launches={ran}; paths, distances and "
-              f"statuses equal the diag route's: {same}")
+              f"{read_hirschberg(st)[0]}, launches={ran}; paths, distances "
+              f"and statuses equal the diag route's: {same}")
         check(same, f"{algorithm}: the row route differs from the diag "
               f"route on the subset")
         check(ran["nw_row"] > 0 and ran["tb_decode_row"] > 0
@@ -2882,29 +2851,27 @@ def cli_golden(tag: str, argv: list, golden: str) -> None:
 
 
 def run_path(fn):
-    """``fn()`` as a main path: launch counts zeroed just before and read
-    just after, every kernel launch and trace_range timed by CUDA events,
-    the host clock around it ending in a sync.  -> dict(out, wall, launches,
-    kt, st, peak)."""
+    """``fn()`` as a main path inside a ``stage_times()`` block, which
+    counts its launches, every kernel launch and trace_range timed by CUDA
+    events, the host clock around it ending in a sync.  -> dict(out, wall,
+    launches, kt, st, peak, hirschberg)."""
     import torch
     from claragenomicsanalysis_tpu_torch.utils.profiling import (kernel_times,
                                                                  stage_times)
     settle_heap()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    zero_hirschberg()
     t0 = time.perf_counter()
     with kernel_times() as kt, stage_times() as st:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = read_launches(ALIGNER_KERNELS + POA_KERNELS)
+    launches = read_launches(st, ALIGNER_KERNELS + POA_KERNELS)
     check(kt.count() == {k: v for k, v in launches.items() if v},
           f"timed launches {kt.count()} != counted {launches}")
     return dict(out=out, wall=wall, launches=launches, kt=kt, st=st,
                 peak=torch.cuda.max_memory_allocated(),
-                hirschberg=read_hirschberg())
+                hirschberg=read_hirschberg(st))
 
 
 def path_kernels(tag: str, run: dict, sm_mhz: float, window=None) -> dict:
@@ -3323,9 +3290,9 @@ def phase23_correct_refs(reads, corrected) -> dict:
 
 
 def rank_path(fn, tag: str, sm_mhz: float, window=None) -> dict:
-    """``fn()`` on this rank as a main path: launch counts zeroed just
-    before and read just after, kernel launches and trace ranges timed, the
-    host clock ending in a sync, the rank's peak memory.  Then rank 0
+    """``fn()`` on this rank as a main path (run_path): its launches and
+    counters, kernel launches and trace ranges timed, the host clock ending
+    in a sync, the rank's peak memory.  Then rank 0
     replays each kernel of its run at its largest launch against its plain
     version (path_kernels; ``window`` as there), at the shapes this rank's
     share gave them, and the ranks wait for each other, so that no rank's
@@ -3343,6 +3310,7 @@ def rank_path(fn, tag: str, sm_mhz: float, window=None) -> dict:
                 launches={k: v for k, v in run["launches"].items() if v},
                 kernel_ms=ms, host_ms=run["st"].host_ms(),
                 stage_ms=run["st"].ms(), hirschberg=run["hirschberg"],
+                counters=dict(run["st"].counters),
                 figs={k: {f: v[f] for f in REPLAY_FIGURES}
                       for k, v in figs.items()})
 
@@ -3353,14 +3321,11 @@ def phase23_rank(refs: dict) -> dict:
     import hashlib
     import torch
     from claragenomicsanalysis_tpu_torch import create_aligner
-    from claragenomicsanalysis_tpu_torch.align.hirschberg import \
-        hirschberg_align_batch
     from claragenomicsanalysis_tpu_torch.core.config import (BatchSize,
                                                              CorrectConfig,
                                                              MapperConfig)
     from claragenomicsanalysis_tpu_torch.io.fasta import create_fasta_parser
     from claragenomicsanalysis_tpu_torch.models import correct, mapper, poa
-    from claragenomicsanalysis_tpu_torch.parallel import comm
     from claragenomicsanalysis_tpu_torch.parallel.mesh import (axis_meshes,
                                                                make_mesh)
     out = {"device": str(torch.device("cuda", torch.cuda.current_device()))}
@@ -3372,14 +3337,14 @@ def phase23_rank(refs: dict) -> dict:
     parser = create_fasta_parser(refs["map_fasta"])
     cfg = MapperConfig()
     warm = mapper.map_all_vs_all(parser, cfg, device="cuda", mesh=rep)
-    sent = comm.all_to_all.bytes
     run = rank_path(lambda: mapper.map_all_vs_all(parser, cfg, device="cuda",
                                                   mesh=rep), "phase 23a", sm)
     res = run.pop("out")
     out["map"] = dict(run, digest=rows_digest(res.rows, res.statuses),
                       warm_same=rows_digest(warm.rows, warm.statuses)
                       == rows_digest(res.rows, res.statuses),
-                      a2a_bytes=comm.all_to_all.bytes - sent)
+                      a2a_bytes=run["counters"].get("comm.all_to_all_bytes",
+                                                    0))
     del parser, warm, res
 
     # 23b: the correction on both views
@@ -3423,12 +3388,12 @@ def phase23_rank(refs: dict) -> dict:
         out[f"poa_{kernel}"] = dict(run, digest=poa_digest(
             dict(cons=cons, covs=covs, stats=stats)))
     sp = make_mesh(data=1, sp=mesh.size)
-    hirschberg_align_batch.ring_levels = 0
     run = rank_path(lambda: align(pairs[:N_SUBSET], "hirschberg-myers", sp,
                                   sp_min_len=RING_SP_MIN_LEN),
                     "phase 23c hirschberg", sm)
     out["hirschberg"] = dict(run, digest=align_digest(run.pop("out")),
-                             ring_levels=hirschberg_align_batch.ring_levels)
+                             ring_levels=run["counters"].get(
+                                 "hirschberg.ring_levels", 0))
     return out
 
 

@@ -27,9 +27,9 @@ default the threshold is :func:`ring_min_len`, the shortest query B4 runs
 in more than one pass (the JAX package takes the longest query whose
 Myers state fits one TPU core's VMEM).
 
-``hirschberg_align_batch.pairs``, ``.levels`` and ``.ring_levels`` count
-the pairs it aligned, the split levels it ran and those of them that went
-to the ring, as the kernel wrappers count their launches.
+The counters ``hirschberg.pairs``, ``hirschberg.levels`` and
+``hirschberg.ring_levels`` (``utils.profiling.count``) hold the pairs it
+aligned, the split levels it ran and those of them that went to the ring.
 """
 
 import numpy as np
@@ -40,7 +40,7 @@ from ..ops.myers import WORD, myers_bottom_row, myers_plan
 from ..ops.nw_diag import INF
 from ..utils.genomeutils import PAD, pack_pairs
 from ..utils.logging import initialize_logger
-from ..utils.profiling import trace_range
+from ..utils.profiling import count, to_host, trace_range
 
 BASE_Q = 32  # fragments with a query side <= BASE_Q are solved directly
 
@@ -113,10 +113,12 @@ def hirschberg_align_batch(queries: list[str], targets: list[str], device,
         return [], np.zeros(0, np.int64)
     qlen = np.array([len(s) for s in queries], np.int64)
     tlen = np.array([len(s) for s in targets], np.int64)
-    codes = pack_pairs(queries, targets, max(1, int(qlen.max(initial=0))),
-                       max(1, int(tlen.max(initial=0))))
-    Q = torch.from_numpy(codes[0]).to(dev)
-    T = torch.from_numpy(codes[2]).to(dev)
+    with trace_range("hirschberg.pack"):
+        codes = pack_pairs(queries, targets,
+                           max(1, int(qlen.max(initial=0))),
+                           max(1, int(tlen.max(initial=0))))
+        Q = torch.from_numpy(codes[0]).to(dev)
+        T = torch.from_numpy(codes[2]).to(dev)
 
     leaves: list[tuple[np.ndarray, np.ndarray, list]] = []
     frag = (np.arange(P), np.zeros(P, np.int64), qlen, np.zeros(P, np.int64),
@@ -132,22 +134,18 @@ def hirschberg_align_batch(queries: list[str], targets: list[str], device,
             with trace_range("hirschberg.split"):
                 frag = _split_level(Q, T, *frag, ring=ring,
                                     sp_min_len=sp_min_len)
-                hirschberg_align_batch.levels += 1
+            count("hirschberg.levels")
 
-    pair = np.concatenate([p for p, _, _ in leaves])
-    qlo = np.concatenate([lo for _, lo, _ in leaves])
-    pieces = [piece for _, _, ps in leaves for piece in ps]
-    paths: list[list[int]] = [[] for _ in range(P)]
-    for k in np.lexsort((qlo, pair)):          # leaves in query order
-        paths[pair[k]] += pieces[k]
-    dists = np.array([np.count_nonzero(p) for p in paths], np.int64)
-    hirschberg_align_batch.pairs += P
+    with trace_range("hirschberg.join"):
+        pair = np.concatenate([p for p, _, _ in leaves])
+        qlo = np.concatenate([lo for _, lo, _ in leaves])
+        pieces = [piece for _, _, ps in leaves for piece in ps]
+        paths: list[list[int]] = [[] for _ in range(P)]
+        for k in np.lexsort((qlo, pair)):      # leaves in query order
+            paths[pair[k]] += pieces[k]
+        dists = np.array([np.count_nonzero(p) for p in paths], np.int64)
+    count("hirschberg.pairs", P)
     return paths, dists
-
-
-hirschberg_align_batch.pairs = 0
-hirschberg_align_batch.levels = 0
-hirschberg_align_batch.ring_levels = 0
 
 
 def _solve_base(Q, T, pair, qlo, qhi, tlo, thi, nw_fn, decode_fn, kernel):
@@ -190,10 +188,10 @@ def _split_level(Q, T, pair, qlo, qhi, tlo, thi, ring=None,
         with trace_range("hirschberg.ring"):
             rows = torch.from_numpy(ring_wavefront_nw_rows(
                 q, ql, t, tl, ring, device=Q.device)).to(Q.device)
-        hirschberg_align_batch.ring_levels += 1
+        count("hirschberg.ring_levels")
     else:
         rows, _ = myers_bottom_row(q, ql, t, tl)
-    jstar = split_points(rows, tl).cpu().numpy()
+    jstar = to_host(split_points(rows, tl)).numpy()
     cut = tlo + jstar
     return (np.concatenate([pair, pair]), np.concatenate([qlo, mid]),
             np.concatenate([mid, qhi]), np.concatenate([tlo, cut]),

@@ -13,7 +13,9 @@ banded NW from radius pow2(max(|lq - lt|, (lq + lt) // 12, 8)) and doubles
 the radius of every pair whose banded score s' exceeds it.  s' >= s always,
 and s' <= r puts every dense-optimal path inside the band, so s' == s and
 the path is again the dense canonical one: the two functions agree wherever
-neither routes to Hirschberg.
+neither routes to Hirschberg.  It counts the pairs that enter its loop in
+``escalate.pairs`` and each pair sent again at a doubled radius in
+``escalate.retries`` (``utils.profiling.count``).
 
 Routing (:func:`routes_to_hirschberg`) is one rule for both: a pair goes to
 the linear-memory Hirschberg path when its banded traceback, counted as
@@ -32,7 +34,7 @@ import torch
 from ..ops.banded import launch_chunks, resolve
 from ..ops.myers import myers_bottom_row
 from ..utils.mathutils import round_up
-from ..utils.profiling import trace_range
+from ..utils.profiling import count, to_host, trace_range
 from .hirschberg import hirschberg_align_batch, pow2_at_least
 
 #: traceback bytes per pair above which a pair goes to Hirschberg (the JAX
@@ -75,19 +77,20 @@ def myers_align_batch(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
                         for a in (q, qlen, t, tlen))
     with trace_range("aligner.myers.score"):
         _, scores = myers_bottom_row(qd, qld, td, tld)
-        dists = scores.cpu().numpy().astype(np.int64)
+        dists = to_host(scores).numpy().astype(np.int64)
 
     paths: list[list[int]] = [[] for _ in range(B)]
     buckets: dict[int, list[int]] = {}
     hirsch: list[int] = []
-    for b in range(B):
-        if qlen[b] == 0 and tlen[b] == 0:
-            continue
-        r = max(8, int(pow2_at_least(max(dists[b], 1))))
-        if routes_to_hirschberg(Lq, r):
-            hirsch.append(b)
-        else:
-            buckets.setdefault(r, []).append(b)
+    with trace_range("aligner.route"):
+        for b in range(B):
+            if qlen[b] == 0 and tlen[b] == 0:
+                continue
+            r = max(8, int(pow2_at_least(max(dists[b], 1))))
+            if routes_to_hirschberg(Lq, r):
+                hirsch.append(b)
+            else:
+                buckets.setdefault(r, []).append(b)
 
     for r, idxs in sorted(buckets.items()):
         for sel in launch_chunks(idxs, Lq, Lt, r, kernel):
@@ -120,17 +123,19 @@ def banded_escalate_align_batch(q: np.ndarray, qlen: np.ndarray,
 
     r_of: dict[int, int] = {}
     hirsch: list[int] = []
-    for b in range(B):
-        if qlen[b] == 0 and tlen[b] == 0:
-            continue
-        lq, lt = int(qlen[b]), int(tlen[b])
-        r = int(pow2_at_least(max(abs(lq - lt), (lq + lt) // 12, 8)))
-        while routes_to_hirschberg(Lq, r) and r > 8:
-            r //= 2            # start at the largest radius that stays banded
-        if routes_to_hirschberg(Lq, r):
-            hirsch.append(b)
-        else:
-            r_of[b] = r
+    with trace_range("aligner.route"):
+        for b in range(B):
+            if qlen[b] == 0 and tlen[b] == 0:
+                continue
+            lq, lt = int(qlen[b]), int(tlen[b])
+            r = int(pow2_at_least(max(abs(lq - lt), (lq + lt) // 12, 8)))
+            while routes_to_hirschberg(Lq, r) and r > 8:
+                r //= 2        # start at the largest radius that stays banded
+            if routes_to_hirschberg(Lq, r):
+                hirsch.append(b)
+            else:
+                r_of[b] = r
+    count("escalate.pairs", len(r_of))
 
     while r_of:
         buckets: dict[int, list[int]] = {}
@@ -143,18 +148,20 @@ def banded_escalate_align_batch(q: np.ndarray, qlen: np.ndarray,
                 with trace_range("aligner.banded_escalate.nw"):
                     sc, tb = nw_fn(qd[seld], qld[seld], td[seld], tld[seld],
                                    r)
-                    sc = sc.cpu().numpy()
+                    sc = to_host(sc).numpy()
                 resolved = sc <= r
                 if resolved.any():
                     with trace_range("aligner.banded_escalate.decode"):
                         sub = decode_fn(tb, qld[seld], tld[seld], r)
-                for k, b in enumerate(sel):
-                    if resolved[k]:
-                        paths[b] = sub[k]
-                        dists[b] = sc[k]
-                    elif routes_to_hirschberg(Lq, 2 * r):
-                        hirsch.append(int(b))
-                    else:
-                        r_of[int(b)] = 2 * r
+                with trace_range("aligner.route"):
+                    for k, b in enumerate(sel):
+                        if resolved[k]:
+                            paths[b] = sub[k]
+                            dists[b] = sc[k]
+                        elif routes_to_hirschberg(Lq, 2 * r):
+                            hirsch.append(int(b))
+                        else:
+                            r_of[int(b)] = 2 * r
+                            count("escalate.retries")
     _hirschberg_into(paths, dists, hirsch, queries, targets, device, kernel)
     return paths, dists

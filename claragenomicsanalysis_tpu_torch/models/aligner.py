@@ -34,7 +34,7 @@ from ..ops.banded import launch_chunks, resolve
 from ..ops.nw_diag import INF
 from ..utils import cigar
 from ..utils.genomeutils import pack_pairs
-from ..utils.profiling import trace_range
+from ..utils.profiling import to_host, trace_range
 
 ALGORITHMS = ("ukkonen", "myers", "hirschberg-myers", "banded-escalate")
 
@@ -180,17 +180,20 @@ class Aligner:
                 paths, dists = self._run_ukkonen(q, qlen, t, tlen)
 
         out = []
-        for b, (qs, ts) in enumerate(zip(self._queries, self._targets)):
-            if len(qs) > cfg.max_query_length or len(ts) > cfg.max_target_length:
-                status = StatusType.EXCEEDED_MAX_LENGTH
-            elif dists[b] >= INF:
-                status = StatusType.EXCEEDED_MAX_ALIGNMENT_DIFFERENCE
-            else:
-                status = StatusType.SUCCESS
-            ok = status == StatusType.SUCCESS
-            out.append(Alignment(query=qs, target=ts, status=status,
-                                 path=paths[b] if ok else [],
-                                 edit_distance=int(dists[b]) if ok else -1))
+        with trace_range("aligner.results"):
+            for b, (qs, ts) in enumerate(zip(self._queries, self._targets)):
+                if (len(qs) > cfg.max_query_length
+                        or len(ts) > cfg.max_target_length):
+                    status = StatusType.EXCEEDED_MAX_LENGTH
+                elif dists[b] >= INF:
+                    status = StatusType.EXCEEDED_MAX_ALIGNMENT_DIFFERENCE
+                else:
+                    status = StatusType.SUCCESS
+                ok = status == StatusType.SUCCESS
+                out.append(Alignment(query=qs, target=ts, status=status,
+                                     path=paths[b] if ok else [],
+                                     edit_distance=int(dists[b]) if ok
+                                     else -1))
         return out
 
     def _run_ukkonen(self, q, qlen, t, tlen):
@@ -239,7 +242,7 @@ def banded_align(q, qlen, t, tlen, radii, device, kernel: str = "diag",
         seld = torch.from_numpy(sel).to(dev)
         ql, tl = qld[seld], tld[seld]
         sc, tb = nw_fn(qd[seld], ql, td[seld], tl, r)
-        scores[sel] = sc.cpu().numpy()
+        scores[sel] = to_host(sc).numpy()
         for b, p in zip(sel, decode_fn(tb, ql, tl, r)):
             paths[b] = p
     return scores, paths

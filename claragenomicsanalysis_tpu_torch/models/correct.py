@@ -42,6 +42,10 @@ from ..utils.profiling import trace_range
 # POA_MEM_BUDGET: device bytes of one POA launch; models.poa cuts each
 # polish batch's launches by it, as the JAX package plans its dispatches
 
+#: path moves whose matched columns one group of reads holds at once
+#: (``_read_groups``; 2^22 moves are at most 64 MB of columns)
+GROUP_MOVES = 1 << 22
+
 #: CorrectConfig.poa_backend -> the models.poa kernel route it runs
 POA_KERNEL = {"auto": "lockstep", "xla": "lockstep", "pallas2": "lockstep",
               "pallas": "window"}
@@ -90,21 +94,30 @@ def _align_overlaps(overlaps: list[Overlap], parser: FastaParser,
     for L, idxs in sorted(span_buckets(spans).items()):
         for start in range(0, len(idxs), batch_size):
             sel = idxs[start:start + batch_size]
-            aligner = create_aligner(
-                L, L, len(sel), band_radius=min(cfg.aligner_band_radius, L),
-                algorithm="banded-escalate", device=device)
-            for i in sel:
-                aligner.add_alignment(*spans[i])
+            with trace_range("aligner.add"):
+                aligner = create_aligner(
+                    L, L, len(sel),
+                    band_radius=min(cfg.aligner_band_radius, L),
+                    algorithm="banded-escalate", device=device)
+                for i in sel:
+                    aligner.add_alignment(*spans[i])
             for i, a in zip(sel, aligner.get_alignments()):
                 paths[i] = a.path if a.status == StatusType.SUCCESS else []
     return paths
 
 
-def _window_supports(read_seq: str, overlaps: list[Overlap],
-                     paths: list[list[int]], parser: FastaParser,
+def _columns(overlaps: list[Overlap], paths: list[list[int]]) -> list:
+    """:func:`_matched_pairs` of each overlap, None where it has no path."""
+    return [_matched_pairs(path, o) if path else None
+            for o, path in zip(overlaps, paths)]
+
+
+def _window_supports(read_seq: str, overlaps: list[Overlap], columns: list,
+                     parser: FastaParser,
                      cfg: CorrectConfig) -> list[list[str]]:
-    """Per-window support segments for one read.  Window wi covers backbone
-    bases [wi*W, (wi+1)*W); a support is the other read's substring whose
+    """Per-window support segments for one read, from its overlaps'
+    matched columns (:func:`_columns`).  Window wi covers backbone bases
+    [wi*W, (wi+1)*W); a support is the other read's substring whose
     aligned columns land in the window, oriented along the backbone.
 
     Supports are taken in canonical overlap order and capped at
@@ -114,12 +127,10 @@ def _window_supports(read_seq: str, overlaps: list[Overlap],
     W = cfg.window_length
     n_win = (len(read_seq) + W - 1) // W
     supports: list[list[str]] = [[] for _ in range(n_win)]
-    for o, path in zip(overlaps, paths):
-        if not path:
+    for o, cols in zip(overlaps, columns):
+        if cols is None or cols[0].size == 0:
             continue
-        rq, rt = _matched_pairs(path, o)
-        if rq.size == 0:
-            continue
+        rq, rt = cols
         other = parser.get_sequence_by_id(o.target_read_id).seq
         w_first = int(rq[0]) // W
         w_last = int(rq[-1]) // W
@@ -142,6 +153,22 @@ def _window_supports(read_seq: str, overlaps: list[Overlap],
                 seg = reverse_complement(seg)
             supports[wi].append(seg)
     return supports
+
+
+def _read_groups(read_ids: list[int], paths_of: dict[int, list]) -> list:
+    """``read_ids`` cut into consecutive groups whose overlaps' paths hold
+    at most GROUP_MOVES moves together (a read at least): the matched
+    columns of one group are held at once, never a whole part's."""
+    groups: list[list[int]] = []
+    moves = 0
+    for rid in read_ids:
+        n = sum(len(p) for p in paths_of[rid])
+        if not groups or moves + n > GROUP_MOVES:
+            groups.append([])
+            moves = 0
+        groups[-1].append(rid)
+        moves += n
+    return groups
 
 
 def _polish_batch_size(cfg: CorrectConfig, depth: int) -> BatchSize:
@@ -209,10 +236,11 @@ def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
         for start in range(0, len(idxs), wpd):
             sel = idxs[start:start + wpd]
             chunk = [jobs[i] for i in sel]
-            batch = create_batch(batch_size=bs, max_poas=len(chunk),
-                                 device=device, kernel=kernel, mesh=mesh)
-            for seqs in chunk:
-                batch.add_poa_group(seqs)
+            with trace_range("poa.groups"):
+                batch = create_batch(batch_size=bs, max_poas=len(chunk),
+                                     device=device, kernel=kernel, mesh=mesh)
+                for seqs in chunk:
+                    batch.add_poa_group(seqs)
             batch.generate_poa()
             if pending is not None:
                 drain(*pending)
@@ -243,29 +271,39 @@ def _correct_part(read_ids: list[int], by_query: dict[int, list[Overlap]],
     n_windows = 0
     with trace_range("correct.windows"):
         Wl = cfg.window_length
-        for slot, rid in enumerate(read_ids):
-            seq = parser.get_sequence_by_id(rid).seq
-            ovl = by_query.get(rid, [])
-            sup = _window_supports(seq, ovl, [path_of[id(o)] for o in ovl],
-                                   parser, cfg)
-            piece = []
-            for wi in range((len(seq) + Wl - 1) // Wl):
-                backbone = seq[wi * Wl: (wi + 1) * Wl]
-                n_windows += 1
-                if len(sup[wi]) >= cfg.min_supports_for_poa and backbone:
-                    slots.append((slot, wi))
-                    jobs.append([backbone] + sup[wi])
-                    piece.append(None)      # filled from POA below
-                else:
-                    piece.append(backbone)
-            pieces.append(piece)
+        paths_of = {rid: [path_of[id(o)] for o in by_query.get(rid, ())]
+                    for rid in read_ids}
+        for group in _read_groups(read_ids, paths_of):
+            # the group's matched columns first, then each read's windows
+            with trace_range("windows.columns"):
+                columns = [_columns(by_query.get(rid, []), paths_of[rid])
+                           for rid in group]
+            with trace_range("windows.supports"):
+                for rid, cols in zip(group, columns):
+                    slot = len(pieces)
+                    seq = parser.get_sequence_by_id(rid).seq
+                    sup = _window_supports(seq, by_query.get(rid, []), cols,
+                                           parser, cfg)
+                    piece = []
+                    for wi in range((len(seq) + Wl - 1) // Wl):
+                        backbone = seq[wi * Wl: (wi + 1) * Wl]
+                        n_windows += 1
+                        if (len(sup[wi]) >= cfg.min_supports_for_poa
+                                and backbone):
+                            slots.append((slot, wi))
+                            jobs.append([backbone] + sup[wi])
+                            piece.append(None)  # filled from POA below
+                        else:
+                            piece.append(backbone)
+                    pieces.append(piece)
 
     with trace_range("correct.poa"):
         cons, n_failed = _polish_windows(jobs, cfg, windows_per_dispatch,
                                          device, mesh)
-    for (slot, wi), c in zip(slots, cons):
-        pieces[slot][wi] = c
-    seqs = ["".join(p) for p in pieces]
+    with trace_range("correct.join"):
+        for (slot, wi), c in zip(slots, cons):
+            pieces[slot][wi] = c
+        seqs = ["".join(p) for p in pieces]
     return seqs, n_windows, len(jobs) - n_failed, n_failed
 
 
@@ -301,9 +339,10 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
     # supports come from overlaps where the corrected read is the QUERY
     # (all-vs-all emits both orders of each pair, so every partner appears)
     by_query: dict[int, list[Overlap]] = {}
-    for o in overlaps:
-        if within_length(o, cfg.max_alignment_length):
-            by_query.setdefault(o.query_read_id, []).append(o)
+    with trace_range("overlaps.filter"):
+        for o in overlaps:
+            if within_length(o, cfg.max_alignment_length):
+                by_query.setdefault(o.query_read_id, []).append(o)
 
     parts = [list(range(s, min(s + part_size, n)))
              for s in range(0, n, part_size)]
@@ -326,9 +365,12 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
             part_seqs = part["seqs"]
             stats = part["stats"]
         else:
-            part_seqs, *stats = _correct_part(
-                read_ids, by_query, parser, cfg, windows_per_dispatch,
-                device, mesh_data)
+            # the part's own time is its glue and the freeing of its
+            # paths and windows when _correct_part returns
+            with trace_range("correct.part"):
+                part_seqs, *stats = _correct_part(
+                    read_ids, by_query, parser, cfg, windows_per_dispatch,
+                    device, mesh_data)
             if part_file and writer:
                 from ..parallel.manifest import write_aside
                 write_aside(part_file, json.dumps({"seqs": part_seqs,

@@ -33,7 +33,7 @@ from ..io.paf import format_paf_row
 from ..ops import map_ops, sketch
 from ..utils.genomeutils import encode, reverse_complement
 from ..utils.mathutils import round_up
-from ..utils.profiling import trace_range
+from ..utils.profiling import to_host, trace_range
 
 
 def resolve_device(device) -> torch.device:
@@ -231,16 +231,16 @@ class Index:
         return self._arrays["n_elems"]
 
     def representations(self) -> np.ndarray:
-        return self._arrays["rep"].cpu().numpy().astype(np.uint32)
+        return to_host(self._arrays["rep"]).numpy().astype(np.uint32)
 
     def read_ids(self) -> np.ndarray:
-        return self._arrays["read_id"].cpu().numpy()
+        return to_host(self._arrays["read_id"]).numpy()
 
     def positions_in_reads(self) -> np.ndarray:
-        return self._arrays["pos"].cpu().numpy()
+        return to_host(self._arrays["pos"]).numpy()
 
     def directions_of_reads(self) -> np.ndarray:
-        return self._arrays["dir"].cpu().numpy()
+        return to_host(self._arrays["dir"]).numpy()
 
     def unique_representations(self) -> np.ndarray:
         return np.unique(self.representations())
@@ -373,7 +373,7 @@ class Matcher:
                 return cls(anchors, total, min(cap, total), cap)
             with trace_range("mapper.match.count"):
                 lo, cum, total = map_ops.match_count(qa, ta)
-                total = int(total)
+                total = int(to_host(total))
             cap_eff = min(cap, total)
             with trace_range("mapper.match.expand"):
                 anchors = map_ops.match_expand(
@@ -385,7 +385,7 @@ class Matcher:
         return self._anchors
 
     def anchors_host(self) -> dict:
-        return {k: v.cpu().numpy() for k, v in self._anchors.items()}
+        return {k: to_host(v).numpy() for k, v in self._anchors.items()}
 
 
 def _canonical_order(rows: np.ndarray) -> np.ndarray:
@@ -424,12 +424,12 @@ class Overlapper:
         of all its rep line's ranks."""
         with trace_range("mapper.compact"):
             rows = map_ops.compact_overlaps_gather(
-                out, int(map_ops.count_valid(out)))
+                out, int(to_host(map_ops.count_valid(out))))
             if rep_sharded(mesh):
                 from ..parallel.comm import all_gather
                 rows = torch.cat(all_gather(rows.T, mesh.group("rep")),
                                  0).T
-            rows = rows.cpu().numpy()
+            rows = to_host(rows).numpy()
         return rows[:, _canonical_order(rows)]
 
     @staticmethod
@@ -442,15 +442,16 @@ class Overlapper:
         if mesh.axis_index("data") or mesh.axis_index("sp"):
             return {}
         with trace_range("mapper.compact_local"):
-            rows = map_ops.compact_overlaps_gather(
-                out, int(map_ops.count_valid(out))).cpu().numpy()
+            rows = to_host(map_ops.compact_overlaps_gather(
+                out, int(to_host(map_ops.count_valid(out))))).numpy()
         return {mesh.axis_index("rep"): rows[:, _canonical_order(rows)]}
 
     @staticmethod
     def rows_to_overlaps(rows: np.ndarray) -> list[Overlap]:
-        cols = rows.T.tolist()              # one bulk int conversion
-        return [Overlap(c[0], c[1], c[2], c[3], c[4], c[5], c[6],
-                        "+" if c[7] == 0 else "-") for c in cols]
+        with trace_range("mapper.overlaps"):
+            cols = rows.T.tolist()          # one bulk int conversion
+            return [Overlap(c[0], c[1], c[2], c[3], c[4], c[5], c[6],
+                            "+" if c[7] == 0 else "-") for c in cols]
 
     @staticmethod
     def get_overlaps(anchors: dict, cfg: MapperConfig) -> list[Overlap]:
@@ -687,9 +688,10 @@ def _map_pairs(pairs, cfg: MapperConfig, max_anchors: int, device,
         rows, status = pair_rows(qidx, tidx, cfg, max_anchors, device, mesh)
         statuses.append(status)
         all_rows.append(rows)
-    rows = (np.concatenate(all_rows, axis=1) if all_rows
-            else np.zeros((8, 0), np.int32))
-    rows = rows[:, _canonical_order(rows)]
+    with trace_range("mapper.merge"):
+        rows = (np.concatenate(all_rows, axis=1) if all_rows
+                else np.zeros((8, 0), np.int32))
+        rows = rows[:, _canonical_order(rows)]
     return MapResult(Overlapper.rows_to_overlaps(rows), statuses, cache.hits,
                      cache.misses, rows=rows)
 

@@ -39,22 +39,24 @@ def overlap_spans(overlaps: list[Overlap], parser: FastaParser):
     """(query span, target span) of each overlap, the target span
     reverse-complemented on the ``-`` strand."""
     spans = []
-    for o in overlaps:
-        q = parser.get_sequence_by_id(o.query_read_id).seq[
-            o.query_start_position_in_read:o.query_end_position_in_read]
-        t = parser.get_sequence_by_id(o.target_read_id).seq[
-            o.target_start_position_in_read:o.target_end_position_in_read]
-        if o.relative_strand == "-":
-            t = reverse_complement(t)
-        spans.append((q, t))
+    with trace_range("overlaps.spans"):
+        for o in overlaps:
+            q = parser.get_sequence_by_id(o.query_read_id).seq[
+                o.query_start_position_in_read:o.query_end_position_in_read]
+            t = parser.get_sequence_by_id(o.target_read_id).seq[
+                o.target_start_position_in_read:o.target_end_position_in_read]
+            if o.relative_strand == "-":
+                t = reverse_complement(t)
+            spans.append((q, t))
     return spans
 
 
 def span_buckets(spans) -> dict[int, list[int]]:
     """Span indices grouped by :func:`span_bucket`, in input order."""
     buckets: dict[int, list[int]] = {}
-    for i, (q, t) in enumerate(spans):
-        buckets.setdefault(span_bucket(len(q), len(t)), []).append(i)
+    with trace_range("overlaps.buckets"):
+        for i, (q, t) in enumerate(spans):
+            buckets.setdefault(span_bucket(len(q), len(t)), []).append(i)
     return buckets
 
 
@@ -77,8 +79,9 @@ def run_pipeline(parser: FastaParser, cfg: PipelineConfig,
     with trace_range("pipeline.map"):
         res = map_all_vs_all(parser, cfg.mapper, device=device,
                              mesh=mesh_rep)
-    overlaps = [o for o in res.overlaps
-                if within_length(o, cfg.max_alignment_length)]
+    with trace_range("overlaps.filter"):
+        overlaps = [o for o in res.overlaps
+                    if within_length(o, cfg.max_alignment_length)]
     spans = overlap_spans(overlaps, parser)
 
     n_fail = 0
@@ -86,21 +89,26 @@ def run_pipeline(parser: FastaParser, cfg: PipelineConfig,
         for blen, idxs in sorted(span_buckets(spans).items()):
             for start in range(0, len(idxs), batch_size):
                 chunk_ids = idxs[start:start + batch_size]
-                aligner = create_aligner(
-                    blen, blen, len(chunk_ids),
-                    band_radius=min(cfg.aligner_band_radius, blen),
-                    algorithm="myers", device=device)
-                for i in chunk_ids:
-                    aligner.add_alignment(*spans[i])
-                for i, a in zip(chunk_ids, aligner.get_alignments()):
-                    if a.status == StatusType.SUCCESS:
-                        overlaps[i].cigar = a.convert_to_cigar()
-                    else:
-                        n_fail += 1
+                with trace_range("aligner.add"):
+                    aligner = create_aligner(
+                        blen, blen, len(chunk_ids),
+                        band_radius=min(cfg.aligner_band_radius, blen),
+                        algorithm="myers", device=device)
+                    for i in chunk_ids:
+                        aligner.add_alignment(*spans[i])
+                alignments = aligner.get_alignments()
+                with trace_range("pipeline.cigar"):
+                    for i, a in zip(chunk_ids, alignments):
+                        if a.status == StatusType.SUCCESS:
+                            overlaps[i].cigar = a.convert_to_cigar()
+                        else:
+                            n_fail += 1
 
     rows = []
-    for o in overlaps:
-        q = parser.get_sequence_by_id(o.query_read_id)
-        t = parser.get_sequence_by_id(o.target_read_id)
-        rows.append(format_paf_row(o, q.name, len(q.seq), t.name, len(t.seq)))
+    with trace_range("pipeline.paf"):
+        for o in overlaps:
+            q = parser.get_sequence_by_id(o.query_read_id)
+            t = parser.get_sequence_by_id(o.target_read_id)
+            rows.append(format_paf_row(o, q.name, len(q.seq), t.name,
+                                       len(t.seq)))
     return PipelineResult(overlaps, rows, len(overlaps) - n_fail, n_fail)

@@ -34,7 +34,7 @@ from ..ops.poa_nwtb import plane_bytes
 from ..ops.poa_window import poa_window, run_windows, window_scratch_bytes
 from ..utils.genomeutils import BASES, encode
 from ..utils.graph import DirectedGraph
-from ..utils.profiling import trace_range
+from ..utils.profiling import to_host, trace_range
 
 #: device-memory budget of one launch's windows (the JAX package's
 #: read correction, models/correct.py, plans its POA dispatches by the
@@ -143,36 +143,39 @@ class Batch:
         arrays; a window refused on the host is packed empty."""
         bs = self.batch_size
         S, L, W = bs.max_sequences_per_poa, bs.padded_seq, len(self._groups)
-        seqs = np.full((W, S, L), -1, dtype=np.int32)
-        weights = np.zeros((W, S, L), dtype=np.int32)
-        lens = np.zeros((W, S), dtype=np.int32)
-        n_seqs = np.zeros(W, dtype=np.int32)
-        rows, cols, strs, given = [], [], [], []
-        for wi, ((group, wt), hstat) in enumerate(
-                zip(self._groups, self._host_status)):
-            if hstat != StatusType.SUCCESS:
-                continue  # an empty window; the host status wins at decode
-            n_seqs[wi] = len(group)
-            if wt is not None:
-                given += [(len(strs) + si, w) for si, w in enumerate(wt)]
-            rows += [wi] * len(group)
-            cols += range(len(group))
-            strs += group
-        n = np.array([len(s) for s in strs], dtype=np.int64)
-        lens[rows, cols] = n
-        if n.sum():
-            # every base of every sequence in one encode and one scatter:
-            # base k of sequence q lands at flat (row_q * S + col_q) * L + k
-            start = np.cumsum(n) - n
-            row_off = (np.array(rows, dtype=np.int64) * S
-                       + np.array(cols, dtype=np.int64)) * L
-            flat = np.arange(n.sum()) + np.repeat(row_off - start, n)
-            seqs.reshape(-1)[flat] = encode("".join(strs))
-            w = np.ones(n.sum(), dtype=np.int32)
-            for k, wk in given:
-                w[start[k]:start[k] + n[k]] = wk
-            weights.reshape(-1)[flat] = w
-        return seqs, weights, lens, n_seqs
+        with trace_range("poa.pack"):
+            seqs = np.full((W, S, L), -1, dtype=np.int32)
+            weights = np.zeros((W, S, L), dtype=np.int32)
+            lens = np.zeros((W, S), dtype=np.int32)
+            n_seqs = np.zeros(W, dtype=np.int32)
+            rows, cols, strs, given = [], [], [], []
+            for wi, ((group, wt), hstat) in enumerate(
+                    zip(self._groups, self._host_status)):
+                if hstat != StatusType.SUCCESS:
+                    # an empty window; the host status wins at decode
+                    continue
+                n_seqs[wi] = len(group)
+                if wt is not None:
+                    given += [(len(strs) + si, w) for si, w in enumerate(wt)]
+                rows += [wi] * len(group)
+                cols += range(len(group))
+                strs += group
+            n = np.array([len(s) for s in strs], dtype=np.int64)
+            lens[rows, cols] = n
+            if n.sum():
+                # every base of every sequence in one encode and one
+                # scatter: base k of sequence q lands at flat
+                # (row_q * S + col_q) * L + k
+                start = np.cumsum(n) - n
+                row_off = (np.array(rows, dtype=np.int64) * S
+                           + np.array(cols, dtype=np.int64)) * L
+                flat = np.arange(n.sum()) + np.repeat(row_off - start, n)
+                seqs.reshape(-1)[flat] = encode("".join(strs))
+                w = np.ones(n.sum(), dtype=np.int32)
+                for k, wk in given:
+                    w[start[k]:start[k] + n[k]] = wk
+                weights.reshape(-1)[flat] = w
+            return seqs, weights, lens, n_seqs
 
     @property
     def _msa(self) -> bool:
@@ -183,7 +186,8 @@ class Batch:
         the batch's device (``arrays``: packed windows, default all)."""
         if arrays is None:
             arrays = self._pack_arrays()
-        arrays = [torch.from_numpy(a).to(self.device) for a in arrays]
+        with trace_range("poa.pack"):
+            arrays = [torch.from_numpy(a).to(self.device) for a in arrays]
         for c in launch_chunks(arrays[0].shape[0], self.batch_size,
                                self._msa, self.scores, self.kernel):
             yield tuple(a[c.start:c.stop] for a in arrays)
@@ -224,7 +228,7 @@ class Batch:
             if self._out_dev is None:
                 self.generate_poa()
             if self._out is None:
-                self._out = tuple(t.cpu().numpy() for t in self._out_dev)
+                self._out = tuple(to_host(t).numpy() for t in self._out_dev)
                 self._out_dev = None
 
     def get_consensus(self):
@@ -236,17 +240,18 @@ class Batch:
         chars = _CHARS[np.where(np.asarray(codes) >= 0,
                                 np.clip(codes, 0, 3), 4)]
         out_s, out_c, out_st = [], [], []
-        for wi in range(len(self._groups)):
-            st = self._status(wi, dstat)
-            if st != StatusType.SUCCESS:
-                out_s.append("")
-                out_c.append([])
-                out_st.append(st)
-                continue
-            n = min(int(lengths[wi]), self.batch_size.max_consensus_size)
-            out_s.append(chars[wi, :n].tobytes().decode())
-            out_c.append(covs[wi, :n].tolist())
-            out_st.append(StatusType.SUCCESS)
+        with trace_range("poa.decode"):
+            for wi in range(len(self._groups)):
+                st = self._status(wi, dstat)
+                if st != StatusType.SUCCESS:
+                    out_s.append("")
+                    out_c.append([])
+                    out_st.append(st)
+                    continue
+                n = min(int(lengths[wi]), self.batch_size.max_consensus_size)
+                out_s.append(chars[wi, :n].tobytes().decode())
+                out_c.append(covs[wi, :n].tolist())
+                out_st.append(StatusType.SUCCESS)
         return out_s, out_c, out_st
 
     def _status(self, wi: int, dstat) -> StatusType:

@@ -13,6 +13,8 @@ a copy and a dtype check, never a reshuffle.
 import numpy as np
 import torch
 
+from ..utils.profiling import to_host
+
 _DTYPES = {"q": np.int8, "qlen": np.int32, "t": np.int8, "tlen": np.int32,
            "tb": np.int8}
 _NDIM = {"q": 2, "qlen": 1, "t": 2, "tlen": 1, "tb": 3}
@@ -52,7 +54,8 @@ def to_reference(q, qlen, t, tlen, tb=None) -> tuple:
     """The port's tensors -> NumPy arrays in the JAX package's layout:
     (q, qlen, t, tlen, tb), tb None when not given."""
     arrays = {"q": q, "qlen": qlen, "t": t, "tlen": tlen, "tb": tb}
-    arrays = {n: None if a is None else _checked(n, a.detach().cpu().numpy())
+    arrays = {n: None if a is None
+              else _checked(n, to_host(a.detach()).numpy())
               for n, a in arrays.items()}
     _check_batch(arrays)
     return tuple(arrays.values())
@@ -85,5 +88,5 @@ def poa_state_to_reference(state) -> dict:
     """The port's ``PoaState`` -> a dict of NumPy arrays named as the JAX
     ``PoaState``'s fields, for ``jax_state._replace(**d)``; ``paths`` is in
     it when the state carries it."""
-    return {name: t.detach().cpu().numpy()
+    return {name: to_host(t.detach()).numpy()
             for name, t in zip(state._fields, state) if t is not None}

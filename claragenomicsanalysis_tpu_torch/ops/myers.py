@@ -20,7 +20,7 @@ pre-shift Ph / Mh; no word above that one affects it.
 - a negative code (PAD or N) matches nothing, on either side.
 
 For CUDA tensors the wrapper launches ``csrc/myers.cu``, counts the launch in
-``myers_bottom_row.launches`` and times it inside a
+``launch.myers`` and times it inside a
 ``utils.profiling.kernel_times()`` block; for CPU tensors it runs
 :func:`myers_bottom_row_torch`, the plain version, which carries the 32-bit
 words as int64 and masks to 32 bits after every ``+``, ``<<`` and ``~``
@@ -219,8 +219,4 @@ def myers_bottom_row(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
             carry.data_ptr() if passes > 1 else None, B, Lq, Lt, G, K,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "myers")
-    myers_bottom_row.launches += 1
     return rows, scores
-
-
-myers_bottom_row.launches = 0

@@ -12,9 +12,10 @@ diagonals per byte into ``tb (Dpad / 4, B, W)`` int8,
 so either package's traceback decodes with either package's decoder.
 
 - :func:`banded_nw_diag` is the entry point.  For CUDA tensors it launches
-  ``csrc/nw_diag.cu``, counts the launch in ``banded_nw_diag.launches`` and
-  times it inside a ``utils.profiling.kernel_times()`` block; for CPU
-  tensors it runs the plain version.
+  ``csrc/nw_diag.cu``, counts the launch in ``launch.nw_diag``
+  (``utils.profiling.kernel_span``) and times it inside a
+  ``utils.profiling.kernel_times()`` block; for CPU tensors it runs the
+  plain version.
 - :func:`banded_nw_diag_torch` is the plain PyTorch version, vectorised over
   the batch and the band with a Python loop over diagonals.
 - :func:`traceback_paths_diag` decodes a traceback on the host with NumPy.
@@ -234,11 +235,7 @@ def banded_nw_diag(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
             Dpad, K, problems, int(variant.endswith("shared")),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "nw_diag")
-    banded_nw_diag.launches += 1
     return scores, tb
-
-
-banded_nw_diag.launches = 0
 
 
 def traceback_paths_diag(tb: np.ndarray, qlen: np.ndarray, tlen: np.ndarray,

@@ -14,9 +14,10 @@ traceback decodes with either package's decoder.  The DP is int32 with
 ``INF = 2^30`` and no saturation, as in the JAX kernel.
 
 - :func:`banded_nw_row` is the entry point.  For CUDA tensors it launches
-  ``csrc/nw_row.cu``, counts the launch in ``banded_nw_row.launches`` and
-  times it inside a ``utils.profiling.kernel_times()`` block; for CPU
-  tensors it runs the plain version.
+  ``csrc/nw_row.cu``, counts the launch in ``launch.nw_row``
+  (``utils.profiling.kernel_span``) and times it inside a
+  ``utils.profiling.kernel_times()`` block; for CPU tensors it runs the
+  plain version.
 - :func:`banded_nw_row_torch` is the plain PyTorch version, vectorised over
   the batch and the band with a Python loop over rows.
 
@@ -220,8 +221,4 @@ def banded_nw_row(q: torch.Tensor, qlen: torch.Tensor, t: torch.Tensor,
             0 if warp else lanes, n, int(variant.endswith("shared")),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "nw_row")
-    banded_nw_row.launches += 1
     return scores, tb
-
-
-banded_nw_row.launches = 0

@@ -26,7 +26,7 @@ Only windows with ``act`` set change (a window without it keeps its
 leaves its input as it was.
 
 - :func:`add_alignment` is the entry point (kernel ``csrc/poa_add.cu`` for
-  CUDA tensors, counted in ``add_alignment.launches``; the plain version
+  CUDA tensors, counted in ``launch.poa_add``; the plain version
   for CPU tensors).
 - :func:`add_alignment_torch` is the plain PyTorch version, vectorised over
   windows with a Python loop over path steps.
@@ -251,8 +251,4 @@ def add_alignment(state: PoaState, pn, pp, seq, weights, k0, act,
             W, N, P, A, L, S, s_row, max_nodes,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_add")
-    add_alignment.launches += 1
     return out
-
-
-add_alignment.launches = 0

@@ -14,7 +14,7 @@ written from the end of an ``MC``-long buffer, so an overlong path keeps its
 ``covs`` (0 pad) and ``length``.
 
 - :func:`consensus` is the entry point (kernel ``csrc/poa_consensus.cu``
-  for CUDA tensors, counted in ``consensus.launches``; the plain version for
+  for CUDA tensors, counted in ``launch.poa_consensus``; the plain version for
   CPU tensors).  The kernel visits each window's nodes once in rank order,
   confirms the fixpoint, and runs the Jacobi sweeps only where that fails
   (a rank that is not a topological permutation of the active nodes).
@@ -177,8 +177,4 @@ def consensus(npred, pred, predw, base, cov, rank, node_count,
             length.data_ptr(), scratch.data_ptr() if device else None, W, N,
             P, max_cons, windows, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_consensus")
-    consensus.launches += 1
     return codes, covs, length
-
-
-consensus.launches = 0

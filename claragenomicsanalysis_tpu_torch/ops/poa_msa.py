@@ -24,7 +24,7 @@ tests compare with it on windows of status SUCCESS, the only ones whose
 rows ``Batch.get_msa`` shows.
 
 - :func:`msa` is the entry point (kernel ``csrc/poa_msa.cu`` for CUDA
-  tensors, counted in ``msa.launches``; the plain version for CPU tensors).
+  tensors, counted in ``launch.poa_msa``; the plain version for CPU tensors).
 - :func:`msa_torch` is the plain PyTorch version, vectorised over windows
   with Python loops over ranks and over sequence positions.
 - :func:`msa_plan` chooses where the kernel keeps a window's tables.
@@ -196,8 +196,4 @@ def msa(state: PoaState, order):
             _PLAN_CODES[variant], windows,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_msa")
-    msa.launches += 1
     return rows, n_cols
-
-
-msa.launches = 0

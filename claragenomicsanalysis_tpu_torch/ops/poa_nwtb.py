@@ -30,7 +30,7 @@ also gets ``band_ok`` False.  The caller ignores both.
 
 - :func:`graph_nw_traceback` is the entry point (kernel
   ``csrc/poa_nwtb.cu`` for CUDA tensors, counted in
-  ``graph_nw_traceback.launches``; the plain version for CPU tensors).
+  ``launch.poa_nwtb``; the plain version for CPU tensors).
 - :func:`graph_nw_traceback_torch` is the plain PyTorch version, vectorised
   over windows with Python loops over rows (:func:`score_plane_torch`, the
   plane itself) and traceback steps.
@@ -344,8 +344,4 @@ def graph_nw_traceback(seq, order, rank, npred, base, nsucc, pred, slen,
             ring_width(L, band_width), word,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_nwtb")
-    graph_nw_traceback.launches += 1
     return pn, pp, k0, band_ok.bool()
-
-
-graph_nw_traceback.launches = 0

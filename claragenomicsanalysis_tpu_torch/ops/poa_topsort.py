@@ -11,7 +11,7 @@ nothing.  Then ``order`` is the stable sort of the nodes by
 ``rank`` its inverse.
 
 - :func:`topsort` is the entry point: it launches ``csrc/poa_topsort.cu``
-  for CUDA tensors (counted in ``topsort.launches``, timed inside a
+  for CUDA tensors (counted in ``launch.poa_topsort``, timed inside a
   ``utils.profiling.kernel_times()`` block) and runs the plain version for
   CPU tensors.  The kernel reaches the same levels by relaxing each
   window's nodes in a visit order built from the carried levels and
@@ -150,8 +150,4 @@ def topsort(level: torch.Tensor, npred: torch.Tensor, pred: torch.Tensor,
             ok.data_ptr(), scratch.data_ptr() if device else None, W, N, P,
             windows, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_topsort")
-    topsort.launches += 1
     return out_level, order, rank, ok.bool()
-
-
-topsort.launches = 0

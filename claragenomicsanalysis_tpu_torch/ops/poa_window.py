@@ -16,7 +16,7 @@ in ``claragenomicsanalysis_tpu/ops/poa_pallas.py``; spec
   of many windows) or one block (:func:`window_plan`), the graph in the
   window's slice of a device scratch buffer (:func:`window_scratch_bytes`)
   and only the graph NW's ring, row facts and sequence in shared memory
-  (:func:`window_smem_bytes`); counted in ``poa_window.launches``.  A window
+  (:func:`window_smem_bytes`); counted in ``launch.poa_window``.  A window
   whose shared memory passes what a block can have raises ``ValueError``
   with the sizes; it never switches route by itself.  For CPU tensors it
   runs its plain version.
@@ -71,8 +71,9 @@ def run_windows(bs: BatchSize, sc: PoaScores, banded: bool, seqs, weights,
     f_topsort, f_nwtb, f_add, f_consensus, f_msa = fns
     W, S = seqs.shape[:2]
     bw = bs.band_width if banded else 0
-    state = init_state(bs, seqs[:, 0], weights[:, 0], lens[:, 0], msa)
-    level = init_level(bs.padded_nodes, lens[:, 0])
+    with trace_range("poa.state"):
+        state = init_state(bs, seqs[:, 0], weights[:, 0], lens[:, 0], msa)
+        level = init_level(bs.padded_nodes, lens[:, 0])
     # the node count of the graph `level` was computed for: topsort's hint
     level_nc = state.node_count
     for s in range(1, S):
@@ -90,11 +91,12 @@ def run_windows(bs: BatchSize, sc: PoaScores, banded: bool, seqs, weights,
         with trace_range("poa.add"):
             new = f_add(state, pn, pp, seqs[:, s], weights[:, s], k0, act,
                         bs.max_nodes_per_window, s)
-        status = torch.where(act & ~ok, _LOOP, new.status)
-        status = torch.where(alive & ~band_ok, _BAND, status)
-        state = new._replace(status=status.to(torch.int32))
-        level = torch.where(alive[:, None], new_level, level)
-        level_nc = torch.where(alive, nc_at_topsort, level_nc)
+        with trace_range("poa.state"):
+            status = torch.where(act & ~ok, _LOOP, new.status)
+            status = torch.where(alive & ~band_ok, _BAND, status)
+            state = new._replace(status=status.to(torch.int32))
+            level = torch.where(alive[:, None], new_level, level)
+            level_nc = torch.where(alive, nc_at_topsort, level_nc)
     with trace_range("poa.topsort"):
         _, order, rank, _ = f_topsort(level, state.npred, state.pred,
                                       state.node_count, level_nc)
@@ -253,9 +255,5 @@ def poa_window(seqs, weights, lens, n_seqs, bs: BatchSize, sc: PoaScores,
             ring_width(L, bw), word, window_smem_bytes(bs, bw, ring, word),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "poa_window")
-    poa_window.launches += 1
     return codes, covs, length, rows, n_cols, status
-
-
-poa_window.launches = 0
 

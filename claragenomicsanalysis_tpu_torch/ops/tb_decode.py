@@ -17,7 +17,7 @@ by status.
 - :func:`decode_diag` and :func:`decode_row` launch their kernels in
   ``csrc/tb_decode.cu`` for CUDA tensors, in the plan
   :func:`tb_decode_plan` gives the shape, count the launches in
-  ``decode_diag.launches`` / ``decode_row.launches`` and time them inside a
+  ``launch.tb_decode`` / ``launch.tb_decode_row`` and time them inside a
   ``utils.profiling.kernel_times()`` block; for CPU tensors they run their
   plain versions.
 - :func:`decode_diag_torch` and :func:`decode_row_torch` are the plain
@@ -31,7 +31,7 @@ import torch
 
 from ..core.status import AlignmentState
 from ..utils.mathutils import round_up
-from ..utils.profiling import kernel_span
+from ..utils.profiling import kernel_span, to_host, trace_range
 from . import _build
 
 
@@ -191,14 +191,8 @@ def decode_diag(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
     """
     if tb.device.type == "cpu":
         return decode_diag_torch(tb, qlen, tlen, band_radius)
-    out = _launch("tb_decode", "cga_tb_decode_diag", "diag", tb, qlen, tlen,
-                  band_radius, path_slots(tb.shape[0]))
-    if tb.shape[1]:             # an empty batch launches nothing
-        decode_diag.launches += 1
-    return out
-
-
-decode_diag.launches = 0
+    return _launch("tb_decode", "cga_tb_decode_diag", "diag", tb, qlen,
+                   tlen, band_radius, path_slots(tb.shape[0]))
 
 
 def decode_row_torch(tb: torch.Tensor, qlen: torch.Tensor,
@@ -218,14 +212,10 @@ def decode_row(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
     """
     if tb.device.type == "cpu":
         return decode_row_torch(tb, qlen, tlen, band_radius)
-    out = _launch("tb_decode_row", "cga_tb_decode_row", "row", tb, qlen,
-                  tlen, band_radius, path_slots_row(tb.shape[0], band_radius))
-    if tb.shape[1]:             # an empty batch launches nothing
-        decode_row.launches += 1
-    return out
+    return _launch("tb_decode_row", "cga_tb_decode_row", "row", tb, qlen,
+                   tlen, band_radius,
+                   path_slots_row(tb.shape[0], band_radius))
 
-
-decode_row.launches = 0
 
 #: the device decoder of each traceback layout
 DECODERS = {"diag": decode_diag, "row": decode_row}
@@ -252,6 +242,8 @@ def traceback_paths_device(tb: torch.Tensor, qlen: torch.Tensor,
     if kernel not in DECODERS:
         raise ValueError(f"unknown traceback layout {kernel!r}")
     packed, start = DECODERS[kernel](tb, qlen, tlen, band_radius)
-    start = start.cpu().numpy()
+    start = to_host(start).numpy()
     first = int(start.min()) // 16 if len(start) else 0
-    return unpack_paths(packed[:, first:].cpu().numpy(), start - 16 * first)
+    packed = to_host(packed[:, first:]).numpy()
+    with trace_range("tb.unpack"):
+        return unpack_paths(packed, start - 16 * first)

@@ -12,6 +12,8 @@ goes through host memory and comes back to its device.
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import count
+
 
 def _on_wire(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` where the group's backend exchanges it: the host for gloo."""
@@ -59,12 +61,9 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     w = _on_wire(x.contiguous(), group)
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=group)
-    all_to_all.bytes += w.numel() * w.element_size()
+    # bytes this process sends, its own share included
+    count("comm.all_to_all_bytes", w.numel() * w.element_size())
     return out.to(x.device)
-
-
-#: bytes this process has sent through all_to_all (its own share included)
-all_to_all.bytes = 0
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

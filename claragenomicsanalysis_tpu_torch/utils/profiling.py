@@ -1,7 +1,6 @@
 """Profiling (counterpart of claragenomicsanalysis_tpu/utils/profiling.py):
-NVTX ranges that name the stages of a run in a CUDA profiler's timeline, and
-CUDA-event times of the kernel launches made inside a ``kernel_times()``
-block.
+named host ranges, counters, and CUDA-event times of the kernel launches
+made inside a ``kernel_times()`` block.
 
     with kernel_times() as kt:
         aligner.align_all()
@@ -9,17 +8,26 @@ block.
     kt.largest["nw_diag"]   # the inputs of its largest launch, to replay
                             # (the latest of equally large ones)
 
-Outside such a block :func:`kernel_span` records nothing; inside it, each
+Outside such a block :func:`kernel_span` times nothing; inside it, each
 launch costs two event records on the launching stream, and the block keeps
 the inputs of each kernel's largest launch alive until it ends.
 
 A ``stage_times()`` block does the same for the stages named by
-:func:`trace_range` (the mapper's ``mapper.*`` ranges): each range entered
-in it records a CUDA event at its start and end on the current stream, so
-``st.ms()`` gives each stage's device-stream time, and the host clock
-around it, so ``st.host_ms()`` gives its wall time on the host; on the
-CPU it keeps the host times alone (``st.timings()``, the CLI's
-``--timings``).
+:func:`trace_range`: each range entered in it records a CUDA event at its
+start and end on the current stream, so ``st.ms()`` gives each stage's
+device-stream time, and the host clock around it, so ``st.host_ms()`` gives
+its wall time on the host; on the CPU it keeps the host times alone
+(``st.timings()``, the CLI's ``--timings``).  The block also holds the
+counters that :func:`count` adds to (``st.counters``): ``launch.<kernel>``
+for every kernel launch (:func:`kernel_span`), ``readback`` for every
+:func:`to_host`, and what the code counts by name (``hirschberg.pairs``,
+``escalate.retries``, ...); once the block has closed,
+:func:`last_counters` still gives them.
+
+A range is an NVTX range where a card is present, and a
+``record_function`` label while a ``torch.profiler`` collects, so that it
+shows in the profiler's trace on the clock of the CUDA activity.  With no
+block open and no profiler collecting, a range and a count cost one check.
 """
 
 import contextlib
@@ -29,46 +37,90 @@ import torch
 
 _collector = None       # the KernelTimes of the open kernel_times() block
 _stages = None          # the StageTimes of the open stage_times() block
+_last = None            # the StageTimes of the last closed one
+_cuda = None            # whether a card is present, decided at first use
+_profiling = torch.autograd._profiler_enabled
 
 
-@contextlib.contextmanager
-def trace_range(name: str):
-    """Push an NVTX range named ``name`` for the body when CUDA is in use,
-    and label it in a torch.profiler trace; inside a ``stage_times()``
-    block, add its host seconds and, with CUDA, its CUDA events."""
-    cuda = torch.cuda.is_available()
+def _card() -> bool:
+    global _cuda
+    if _cuda is None:
+        _cuda = torch.cuda.is_available()
+    return _cuda
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the open ``stage_times()``
+    block; nothing without one."""
     stages = _stages
-    if cuda:
-        torch.cuda.nvtx.range_push(name)
-    if stages is not None:
+    if stages is None:
+        return
+    stages.counters[name] = stages.counters.get(name, 0) + n
+
+
+class trace_range:
+    """``with trace_range(name):`` names the body: an NVTX range where a
+    card is present, a ``record_function`` label while a torch.profiler
+    collects, and inside a ``stage_times()`` block its host seconds and,
+    with a card, its CUDA events."""
+
+    __slots__ = ("name", "stages", "label", "t0", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        cuda = _cuda if _cuda is not None else _card()
         if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = time.perf_counter()
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
+            torch.cuda.nvtx.range_push(self.name)
+        self.stages = stages = _stages
+        self.label = None
+        if stages is None and not _profiling():
+            return                      # nothing records: one check
+        if _profiling():
+            self.label = torch.profiler.record_function(self.name)
+            self.label.__enter__()
+        if stages is not None:
+            if cuda:
+                self.start = torch.cuda.Event(enable_timing=True)
+                self.start.record()
+            self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        stages, name = self.stages, self.name
         if stages is not None:
             stages.host_s[name] = (stages.host_s.get(name, 0.0)
-                                   + time.perf_counter() - t0)
+                                   + time.perf_counter() - self.t0)
             stages.calls[name] = stages.calls.get(name, 0) + 1
-            if cuda:
+            if _cuda:
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
-                stages.events.setdefault(name, []).append((start, end))
-        if cuda:
+                stages.events.setdefault(name, []).append((self.start, end))
+        if self.label is not None:
+            self.label.__exit__(*exc)
+        if _cuda:
             torch.cuda.nvtx.range_pop()
+        return False
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``: a read-back, in the range ``host.readback`` and counted
+    in ``readback``, so that the time the host waits on the card has a
+    name."""
+    with trace_range("host.readback"):
+        count("readback")
+        return t.cpu()
 
 
 class StageTimes:
-    """Host seconds and entries of every trace_range entered, and with
-    CUDA its start and end events, by name."""
+    """Host seconds and entries of every trace_range entered, with CUDA
+    its start and end events, by name; and the counters of :func:`count`."""
 
     def __init__(self):
         self.events: dict[str, list] = {}
         self.host_s: dict[str, float] = {}
         self.calls: dict[str, int] = {}
+        self.counters: dict[str, int] = {}
 
     def host_ms(self) -> dict[str, float]:
         """Total host milliseconds inside each range, by name."""
@@ -84,6 +136,12 @@ class StageTimes:
     def count(self) -> dict[str, int]:
         return dict(self.calls)
 
+    def launches(self) -> dict[str, int]:
+        """Launches of each kernel, by kernel name (the ``launch.*``
+        counters)."""
+        return {k.removeprefix("launch."): v
+                for k, v in self.counters.items() if k.startswith("launch.")}
+
     def timings(self) -> dict[str, dict[str, float]]:
         """Host seconds and entries by range, in the JAX package's
         ``stage_timings()`` layout (the CLI's ``--timings``).  On the card
@@ -96,15 +154,22 @@ class StageTimes:
 @contextlib.contextmanager
 def stage_times():
     """Time every trace_range entered in the body (host seconds, and CUDA
-    events where CUDA is in use); yields a StageTimes."""
-    global _stages
+    events where CUDA is in use) and keep its counters; yields a
+    StageTimes."""
+    global _stages, _last
     if _stages is not None:
         raise RuntimeError("stage_times() blocks do not nest")
     _stages = StageTimes()
     try:
         yield _stages
     finally:
-        _stages = None
+        _last, _stages = _stages, None
+
+
+def last_counters() -> dict[str, int] | None:
+    """A copy of the counters of the last ``stage_times()`` block that
+    closed; None before any has."""
+    return None if _last is None else dict(_last.counters)
 
 
 class KernelTimes:
@@ -144,8 +209,11 @@ def kernel_times():
 @contextlib.contextmanager
 def kernel_span(name: str, inputs: tuple = (), work: int = 0):
     """Wrap one kernel launch on ``inputs`` that does ``work`` (cells or
-    steps, as the wrapper counts them): recorded by CUDA events on the
-    current stream when a kernel_times() block is open, free otherwise."""
+    steps, as the wrapper counts them): counted in ``launch.<name>``
+    (:func:`count`), and recorded by CUDA events on the current stream
+    when a kernel_times() block is open."""
+    if _stages is not None:
+        count(f"launch.{name}")
     if _collector is None:
         yield
         return

@@ -179,13 +179,12 @@ def test_tb_bytes_and_chunks_follow_the_kernel(monkeypatch):
 def test_row_kernel_on_card_matches_cpu(cuda_device, algorithm):
     """kernel="row" on the card launches B3 and B2's row decode, never the
     diag kernels, and equals kernel="diag" on the CPU."""
-    from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row, tb_decode
+    from claragenomicsanalysis_tpu_torch.utils import profiling
     pairs = bucket_pairs(32)
-    counters = (nw_row.banded_nw_row, tb_decode.decode_row,
-                nw_diag.banded_nw_diag, tb_decode.decode_diag)
-    before = [f.launches for f in counters]
-    _, card = run_port(pairs, algorithm, "row", cuda_device)
-    torch.cuda.synchronize()
-    added = [f.launches - b for f, b in zip(counters, before)]
+    with profiling.stage_times() as st:
+        _, card = run_port(pairs, algorithm, "row", cuda_device)
+        torch.cuda.synchronize()
+    added = [st.launches().get(k, 0) for k in (
+        "nw_row", "tb_decode_row", "nw_diag", "tb_decode")]
     assert added[0] > 0 and added[1] > 0 and added[2:] == [0, 0]
     assert card == run_port(pairs, algorithm, "diag")[1]

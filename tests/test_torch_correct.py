@@ -141,9 +141,10 @@ def test_window_supports_equal_jax(host_cases, window, max_support,
               min_matched_bases=min_matched)
     cfg, jcfg = CorrectConfig(**kw), jax_config.CorrectConfig(**kw)
     for cut in (len(read), 500):
+        overlaps = [c[0] for c in cases]
         ours = correct._window_supports(
-            read[:cut], [c[0] for c in cases], [c[2] for c in cases],
-            port_p, cfg)
+            read[:cut], overlaps,
+            correct._columns(overlaps, [c[2] for c in cases]), port_p, cfg)
         theirs = jax_correct._window_supports(
             read[:cut], [c[1] for c in cases], [c[2] for c in cases],
             jax_p, jcfg)

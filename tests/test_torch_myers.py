@@ -13,6 +13,7 @@ from claragenomicsanalysis_tpu.ops.myers import myers_bottom_row as jax_myers
 from claragenomicsanalysis_tpu.utils.genomeutils import (
     generate_random_genome, mutate_sequence)
 from claragenomicsanalysis_tpu_torch.ops import myers
+from claragenomicsanalysis_tpu_torch.utils import profiling
 from claragenomicsanalysis_tpu_torch.utils.genomeutils import pack_pairs
 
 LQ, LT = 200, 216        # padded shapes of the edge batch
@@ -81,13 +82,13 @@ def test_empty_query_row_counts_columns():
     assert scores.tolist() == [3, 0]
 
 
-def test_wrapper_runs_plain_version_for_cpu_tensors(monkeypatch):
-    monkeypatch.setattr(myers.myers_bottom_row, "launches", 0)
+def test_wrapper_runs_plain_version_for_cpu_tensors():
     _, args = tensors(edge_pairs(6))
-    got = myers.myers_bottom_row(*args)
+    with profiling.stage_times() as st:
+        got = myers.myers_bottom_row(*args)
     want = myers.myers_bottom_row_torch(*args)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert myers.myers_bottom_row.launches == 0
+    assert st.launches() == {}
 
 
 def test_rejects_bad_inputs():
@@ -111,10 +112,10 @@ def test_kernel_matches_plain_version_on_card(cuda_device):
     arrays = pack_pairs([a for a, _ in pairs], [b for _, b in pairs],
                         2048, 2200)
     args = tuple(torch.from_numpy(x).to(cuda_device) for x in arrays)
-    before = myers.myers_bottom_row.launches
-    rows_k, scores_k = myers.myers_bottom_row(*args)
-    torch.cuda.synchronize()
-    assert myers.myers_bottom_row.launches == before + 1
+    with profiling.stage_times() as st:
+        rows_k, scores_k = myers.myers_bottom_row(*args)
+        torch.cuda.synchronize()
+    assert st.launches() == {"myers": 1}
     rows_p, scores_p = myers.myers_bottom_row_torch(*args)
     assert torch.equal(rows_k, rows_p)
     assert torch.equal(scores_k, scores_p)

@@ -21,6 +21,7 @@ from claragenomicsanalysis_tpu.utils.genomeutils import (
     encode, generate_random_genome, mutate_sequence)
 from claragenomicsanalysis_tpu_torch.core.status import StatusType
 from claragenomicsanalysis_tpu_torch.ops import nw_diag, nw_row, tb_decode
+from claragenomicsanalysis_tpu_torch.utils import profiling
 from claragenomicsanalysis_tpu_torch.ops.convert import (from_reference,
                                                          to_reference)
 
@@ -160,15 +161,15 @@ def test_decode_row_matches_jax_decoder_on_jax_traceback(r):
     np.testing.assert_array_equal(start.numpy()[ok], start_jax[ok])
 
 
-def test_nw_wrapper_runs_plain_version_for_cpu_tensors(monkeypatch):
+def test_nw_wrapper_runs_plain_version_for_cpu_tensors():
     """On CPU tensors the wrapper is the plain version and launches
     nothing; packed rows past a problem's last one are zero."""
-    monkeypatch.setattr(nw_row.banded_nw_row, "launches", 0)
     q, qlen, t, tlen = from_reference(*pack(make_pairs(7, 8)))[:4]
-    s_w, tb_w = nw_row.banded_nw_row(q, qlen, t, tlen, 8)
+    with profiling.stage_times() as st:
+        s_w, tb_w = nw_row.banded_nw_row(q, qlen, t, tlen, 8)
     s_p, tb_p = nw_row.banded_nw_row_torch(q, qlen, t, tlen, 8)
     assert torch.equal(s_w, s_p) and torch.equal(tb_w, tb_p)
-    assert nw_row.banded_nw_row.launches == 0
+    assert st.launches() == {}
     assert tb_w.shape == (nw_row.tb_rows(LQ), len(qlen),
                           nw_row.band_width_row(8))
     for b in range(len(qlen)):
@@ -177,15 +178,14 @@ def test_nw_wrapper_runs_plain_version_for_cpu_tensors(monkeypatch):
             assert tb_w[(int(qlen[b]) - 1) // 4, b].any(), b
 
 
-def test_decode_wrapper_runs_plain_version_for_cpu_tensors(monkeypatch):
-    monkeypatch.setattr(tb_decode.decode_row, "launches", 0)
-    monkeypatch.setattr(tb_decode.decode_diag, "launches", 0)
+def test_decode_wrapper_runs_plain_version_for_cpu_tensors():
     q, qlen, t, tlen = from_reference(*pack(make_pairs(8, 8)))[:4]
     _, tb = nw_row.banded_nw_row(q, qlen, t, tlen, 8)
-    got = tb_decode.decode_row(tb, qlen, tlen, 8)
+    with profiling.stage_times() as st:
+        got = tb_decode.decode_row(tb, qlen, tlen, 8)
     want = tb_decode.decode_row_torch(tb, qlen, tlen, 8)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert tb_decode.decode_row.launches == tb_decode.decode_diag.launches == 0
+    assert st.launches() == {}
 
 
 def test_rejects_bad_inputs_and_unknown_layout():
@@ -212,13 +212,11 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
         pairs = make_pairs(700 + r, r, lq, lt)
         q, qlen, t, tlen = from_reference(*pack(pairs, lq, lt),
                                           device=cuda_device)[:4]
-        before = (nw_row.banded_nw_row.launches, tb_decode.decode_row.launches)
-        s_k, tb_k = nw_row.banded_nw_row(q, qlen, t, tlen, r)
-        pk_k, st_k = tb_decode.decode_row(tb_k, qlen, tlen, r)
-        torch.cuda.synchronize()
-        assert (nw_row.banded_nw_row.launches,
-                tb_decode.decode_row.launches) == (before[0] + 1,
-                                                   before[1] + 1)
+        with profiling.stage_times() as st:
+            s_k, tb_k = nw_row.banded_nw_row(q, qlen, t, tlen, r)
+            pk_k, st_k = tb_decode.decode_row(tb_k, qlen, tlen, r)
+            torch.cuda.synchronize()
+        assert st.launches() == {"nw_row": 1, "tb_decode_row": 1}
         s_p, tb_p = nw_row.banded_nw_row_torch(q, qlen, t, tlen, r)
         assert torch.equal(s_k, s_p), r
         assert torch.equal(tb_k, tb_p), r

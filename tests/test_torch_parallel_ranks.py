@@ -43,6 +43,7 @@ from claragenomicsanalysis_tpu_torch.parallel import (axis_meshes, make_mesh,
 from claragenomicsanalysis_tpu_torch.parallel.shard import shard_slice
 from claragenomicsanalysis_tpu_torch.simulators import (NoisyReadSimulator,
                                                         PoissonGenomeSimulator)
+from claragenomicsanalysis_tpu_torch.utils import profiling
 from claragenomicsanalysis_tpu_torch.utils.genomeutils import pack_pairs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -245,12 +246,12 @@ def _hirschberg_case(_):
         mesh = make_mesh(data=1, sp=sp)
         if mesh.coords is None:
             continue
-        before = hirschberg_align_batch.ring_levels
-        paths, dists = hirschberg_align_batch(
-            [a for a, _ in pairs], [b for _, b in pairs], "cpu", mesh=mesh,
-            sp_min_len=64)
+        with profiling.stage_times() as st:
+            paths, dists = hirschberg_align_batch(
+                [a for a, _ in pairs], [b for _, b in pairs], "cpu",
+                mesh=mesh, sp_min_len=64)
         out[name] = (paths, dists.tolist(),
-                     hirschberg_align_batch.ring_levels - before)
+                     st.counters.get("hirschberg.ring_levels", 0))
     mesh = make_mesh(data=1, sp=WORLD)
     al = create_aligner(400, 400, len(pairs), algorithm="hirschberg-myers",
                         device="cpu", mesh=mesh, sp_min_len=64)

@@ -17,6 +17,7 @@ from claragenomicsanalysis_tpu.ops.tb_decode_pallas import _decode
 from claragenomicsanalysis_tpu.utils.genomeutils import (
     encode, generate_random_genome, mutate_sequence)
 from claragenomicsanalysis_tpu_torch.ops import nw_diag, tb_decode
+from claragenomicsanalysis_tpu_torch.utils import profiling
 from claragenomicsanalysis_tpu_torch.ops.convert import (from_reference,
                                                          to_reference)
 
@@ -79,14 +80,14 @@ def test_paths_of_port_traceback_match_jax_host_decoder():
             assert sum(c != 0 for c in dev_paths[b]) == s, b
 
 
-def test_wrapper_runs_plain_version_for_cpu_tensors(monkeypatch):
-    monkeypatch.setattr(tb_decode.decode_diag, "launches", 0)
+def test_wrapper_runs_plain_version_for_cpu_tensors():
     q, qlen, t, tlen = from_reference(*make_batch(13))[:4]
     _, tb = nw_diag.banded_nw_diag(q, qlen, t, tlen, R)
-    got = tb_decode.decode_diag(tb, qlen, tlen, R)
+    with profiling.stage_times() as st:
+        got = tb_decode.decode_diag(tb, qlen, tlen, R)
     want = tb_decode.decode_diag_torch(tb, qlen, tlen, R)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert tb_decode.decode_diag.launches == 0
+    assert st.launches() == {}
 
 
 def test_convert_round_trip_and_checks():
@@ -110,10 +111,10 @@ def test_convert_round_trip_and_checks():
 def test_kernel_matches_plain_version_on_card(cuda_device):
     q, qlen, t, tlen = from_reference(*make_batch(15), device=cuda_device)[:4]
     scores, tb = nw_diag.banded_nw_diag(q, qlen, t, tlen, R)
-    before = tb_decode.decode_diag.launches
-    packed, start = tb_decode.decode_diag(tb, qlen, tlen, R)
-    torch.cuda.synchronize()
-    assert tb_decode.decode_diag.launches == before + 1
+    with profiling.stage_times() as st:
+        packed, start = tb_decode.decode_diag(tb, qlen, tlen, R)
+        torch.cuda.synchronize()
+    assert st.launches() == {"tb_decode": 1}
     want_packed, want_start = tb_decode.decode_diag_torch(tb, qlen, tlen, R)
     ok = scores < INF
     assert torch.equal(packed[ok], want_packed[ok])
