@@ -312,7 +312,8 @@ def settle_heap() -> None:
     gc.freeze()
 
 
-ALIGNER_KERNELS = ("nw_diag", "tb_decode", "nw_row", "tb_decode_row", "myers")
+ALIGNER_KERNELS = ("nw_diag", "tb_decode", "nw_row", "tb_decode_row", "myers",
+                   "cigar")
 POA_KERNELS = ("poa_topsort", "poa_nwtb", "poa_add", "poa_consensus",
                "poa_msa", "poa_window")
 
@@ -726,7 +727,8 @@ def phase_main(pairs, sm_mhz: float):
           f"chunks={len(plan)} radii={sorted(set(radius.tolist()))} "
           f"max_memory_allocated={peak} B")
     check(launches == {"nw_diag": len(plan), "tb_decode": len(plan),
-                       "nw_row": 0, "tb_decode_row": 0, "myers": 0},
+                       "nw_row": 0, "tb_decode_row": 0, "myers": 0,
+                       "cigar": 0},
           f"launches {launches} != one of B1 and B2 per chunk "
           f"({len(plan)} chunks)")
     check(kt.count() == {"nw_diag": len(plan), "tb_decode": len(plan)},
@@ -1009,6 +1011,42 @@ def time_myers(q, qlen, t, tlen, sm_mhz: float) -> dict:
             "bound": bound(OPS_PER_MYERS_WORD * words * Lt, nbytes, sm_mhz),
             "shape": f"B={B} Lq={q.shape[1]} Lt={Lt} "
                      f"Wq={-(-q.shape[1] // 32)}"}
+
+
+def time_cigar(words, seg_base, seg_first, seg_end, path_seg,
+               sm_mhz: float) -> dict:
+    """The CIGAR kernel against its plain version on these inputs: the text
+    equal byte for byte, times (kernel: its count and write passes by CUDA
+    events, each the mean of 5 launches, the scan and the read-back of the
+    total between them untimed; plain: one call on CPU copies) and the
+    bound (bytes: the segments' codes read once at 2 bits, the segment
+    table and path offsets read once, the text written once)."""
+    import torch
+    from claragenomicsanalysis_tpu_torch.ops import cigar
+    args = (words, seg_base, seg_first, seg_end, path_seg)
+    dev, P, S = words.device, path_seg.numel() - 1, seg_base.numel()
+    letters = cigar._letters(False)
+    counts = torch.empty(P, dtype=torch.int64, device=dev)
+    none = torch.empty(0, dtype=torch.uint8, device=dev)
+    ms_count, _ = cuda_ms(lambda: cigar._launch(args, counts, none, P,
+                                                letters, False), 5)
+    offsets = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = counts.cumsum(0)
+    text = torch.empty(int(offsets[-1]), dtype=torch.uint8, device=dev)
+    ms_write, _ = cuda_ms(lambda: cigar._launch(args, offsets, text, P,
+                                                letters, True), 5)
+    t0 = time.perf_counter()
+    plain = cigar.cigar_text_torch(*(a.cpu() for a in args))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = text.cpu()
+    err = (int((got != plain).sum()) if got.shape == plain.shape
+           else abs(got.numel() - plain.numel()) + 1)
+    codes = int((seg_end - seg_first.clamp(min=0)).clamp(min=0).sum())
+    nbytes = codes / 4 + 24 * S + 8 * (P + 1) + text.numel()
+    return {"ms": ms_count + ms_write, "plain_ms": plain_ms, "err": err,
+            "plan": "warp/4", "bound": bound(0, nbytes, sm_mhz),
+            "count_ms": ms_count, "write_ms": ms_write,
+            "shape": f"P={P} S={S} codes={codes} text={text.numel()}"}
 
 
 def phase_myers_main(pairs, ukk, sm_mhz: float):
@@ -2550,7 +2588,7 @@ def phase_row(pairs, ukk, myers_results, sm_mhz: float) -> dict:
           f"; launches={launches} chunks={len(plan)} "
           f"max_memory_allocated={peak} B")
     check(launches == {"nw_diag": 0, "tb_decode": 0, "nw_row": len(plan),
-                       "tb_decode_row": len(plan), "myers": 0},
+                       "tb_decode_row": len(plan), "myers": 0, "cigar": 0},
           f"launches {launches} != one of B3 and B2-row per chunk "
           f"({len(plan)} chunks) and none of the diag kernels")
     check(kt.count() == {"nw_row": len(plan), "tb_decode_row": len(plan)},
@@ -2902,6 +2940,15 @@ def path_kernels(tag: str, run: dict, sm_mhz: float, window=None) -> dict:
               f"({m['bound'][1]})")
         check(m["err"] == 0, f"{tag}: myers disagrees with its plain "
               f"version at its largest launch")
+    if "cigar" in per:
+        figs["cigar"] = c = time_cigar(*kt.largest["cigar"], sm_mhz)
+        print(f"{tag} cigar replayed at its largest launch ({c['shape']}): "
+              f"kernel {c['ms']:.4f} ms (count {c['count_ms']:.4f} + write "
+              f"{c['write_ms']:.4f}) vs plain {c['plain_ms']:.1f} ms, bytes "
+              f"differing {c['err']}; bound {c['bound'][0]:.4f} ms "
+              f"({c['bound'][1]})")
+        check(c["err"] == 0, f"{tag}: cigar disagrees with its plain "
+              f"version at its largest launch")
     for k in POA_STEPS:
         if k in per:
             figs[k] = replay_poa_kernel(tag, k, kt.largest[k], sm_mhz)
@@ -2972,23 +3019,11 @@ def phase_pipeline(parser, reads, sm_mhz: float) -> dict:
                + MAP_ARGS + ["--band-radius", "256", "--device", "cuda"],
                "sample_pipeline.paf")
     cfg = PipelineConfig(mapper=MapperConfig(**COMPOSITION_MAPPER))
-    # the host seconds of the CIGAR strings, summed inside the run
-    to_cigar, cigar_s = aligner.Alignment.convert_to_cigar, [0.0]
-
-    def timed_cigar(self, extended=False):
-        t0 = time.perf_counter()
-        out = to_cigar(self, extended)
-        cigar_s[0] += time.perf_counter() - t0
-        return out
-
-    aligner.Alignment.convert_to_cigar = timed_cigar
-    try:
-        run = run_path(lambda: pl.run_pipeline(parser, cfg, device="cuda"))
-    finally:
-        aligner.Alignment.convert_to_cigar = to_cigar
+    run = run_path(lambda: pl.run_pipeline(parser, cfg, device="cuda"))
     res, wall = run["out"], run["wall"]
     launches = run["launches"]
-    check(all(launches[k] > 0 for k in ("myers", "nw_diag", "tb_decode"))
+    check(all(launches[k] > 0 for k in ("myers", "nw_diag", "tb_decode",
+                                        "cigar"))
           and not any(launches[k] for k in POA_KERNELS + ("nw_row",
                                                           "tb_decode_row")),
           f"phase 21: the pipeline's kernels were not all launched, or "
@@ -3016,7 +3051,8 @@ def phase_pipeline(parser, reads, sm_mhz: float) -> dict:
           f"{top_ms:.1f} ms by their events; kernels {busy:.1f} ms, so "
           f"{1 - busy / (wall * 1e3):.4f} of the wall is host work or torch "
           f"ops outside the hand-written kernels; the CIGAR strings "
-          f"{cigar_s[0] * 1e3:.1f} ms of pipeline.align's host time")
+          f"(pipeline.cigar) {run['st'].host_ms()['pipeline.cigar']:.1f} ms "
+          f"of pipeline.align's host time")
     check(res.n_align_failed == 0 and res.n_aligned == n > 0,
           f"phase 21: {res.n_align_failed} of {n} alignments failed")
     # every CIGAR consumes its spans; the rows without cg:Z are the map's
@@ -3119,7 +3155,7 @@ def phase_correct(parser, reads, genome, sm_mhz: float) -> tuple:
             "poa_consensus")
     check(all(launches[k] > 0 for k in want) and not any(
         launches[k] for k in ("nw_row", "tb_decode_row", "poa_msa",
-                              "poa_window")),
+                              "poa_window", "cigar")),
           f"phase 22: the correction's kernels were not all launched, or "
           f"others were: {launches}")
     bases = sum(len(r.seq) for r in reads)

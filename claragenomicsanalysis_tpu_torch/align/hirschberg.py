@@ -19,6 +19,13 @@ give the same path.  Fragments live as NumPy arrays on the host; each
 level's sequences are cut from the pairs' codes on the device, and only the
 split columns come back.
 
+The leaves' paths take one of two routes.  :func:`hirschberg_align_batch`
+(``Aligner.get_alignments()``, ``cli align``, ``cli correct``) unpacks each
+leaf's codes on the host and joins them into a code list a pair.
+:func:`hirschberg_align_packed` (``Aligner.get_cigars()``, ``cli
+pipeline``) keeps every leaf's packed words on the device, as segments of
+its pair's path, for the CIGAR kernel (``ops/cigar.py``).
+
 With a mesh whose 'sp' axis has more than one rank, a level whose longer
 side reaches ``sp_min_len`` takes its forward and reverse rows from the
 ring wavefront (parallel/ring_nw.py) instead of B4; the rows are the same
@@ -32,12 +39,15 @@ The counters ``hirschberg.pairs``, ``hirschberg.levels`` and
 aligned, the split levels it ran and those of them that went to the ring.
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from ..ops.banded import launch_chunks, resolve
 from ..ops.myers import WORD, myers_bottom_row, myers_plan
 from ..ops.nw_diag import INF
+from ..ops.tb_decode import PackedPaths, decode_packed
 from ..utils.genomeutils import PAD, pack_pairs
 from ..utils.logging import initialize_logger
 from ..utils.profiling import count, to_host, trace_range
@@ -90,27 +100,12 @@ def ring_min_len() -> int:
     return (words - 1) * WORD + 1
 
 
-def hirschberg_align_batch(queries: list[str], targets: list[str], device,
-                           kernel: str = "diag", mesh=None,
-                           sp_min_len: int | None = None
-                           ) -> tuple[list[list[int]], np.ndarray]:
-    """-> (paths, dists): each pair's optimal edit path (AlignmentState
-    codes) and its cost, with the DP on ``device`` and the base cases by
-    the banded-NW ``kernel``.  ``mesh`` with an 'sp' axis > 1: levels whose
-    longer side reaches ``sp_min_len`` (default :func:`ring_min_len`) take
-    their rows from the ring; every rank calls with the same pairs."""
-    ring = mesh if mesh is not None and mesh.shape.get("sp", 1) > 1 else None
-    if ring is not None and sp_min_len is None:
-        sp_min_len = ring_min_len()
-        initialize_logger().info(
-            "hirschberg: auto sp threshold %d bases (the shortest query B4 "
-            "runs in more than one pass); longer levels use the "
-            "ring-wavefront 'sp' axis", sp_min_len)
-    nw_fn, decode_fn = resolve(device, kernel)
-    dev = torch.device(device)
+def _leaves(queries, targets, dev, kernel, nw_fn, decode_fn, ring=None,
+            sp_min_len=None) -> list:
+    """Every pair split level by level down to its base fragments, which
+    are solved by banded NW: -> one ``(pair, qlo, decode_fn(tb, ...))``
+    triple a base launch."""
     P = len(queries)
-    if P == 0:
-        return [], np.zeros(0, np.int64)
     qlen = np.array([len(s) for s in queries], np.int64)
     tlen = np.array([len(s) for s in targets], np.int64)
     with trace_range("hirschberg.pack"):
@@ -120,7 +115,7 @@ def hirschberg_align_batch(queries: list[str], targets: list[str], device,
         Q = torch.from_numpy(codes[0]).to(dev)
         T = torch.from_numpy(codes[2]).to(dev)
 
-    leaves: list[tuple[np.ndarray, np.ndarray, list]] = []
+    leaves: list[tuple[np.ndarray, np.ndarray, object]] = []
     frag = (np.arange(P), np.zeros(P, np.int64), qlen, np.zeros(P, np.int64),
             tlen)                                  # pair, qlo, qhi, tlo, thi
     while len(frag[0]):
@@ -135,6 +130,35 @@ def hirschberg_align_batch(queries: list[str], targets: list[str], device,
                 frag = _split_level(Q, T, *frag, ring=ring,
                                     sp_min_len=sp_min_len)
             count("hirschberg.levels")
+    return leaves
+
+
+def hirschberg_align_batch(queries: list[str], targets: list[str], device,
+                           kernel: str = "diag", mesh=None,
+                           sp_min_len: int | None = None
+                           ) -> tuple[list[list[int]], np.ndarray]:
+    """-> (paths, dists): each pair's optimal edit path (AlignmentState
+    codes) and its cost, with the DP on ``device`` and the base cases by
+    the banded-NW ``kernel``.  ``mesh`` with an 'sp' axis > 1: levels whose
+    longer side reaches ``sp_min_len`` (default :func:`ring_min_len`) take
+    their rows from the ring; every rank calls with the same pairs.
+
+    The list route (``Aligner.get_alignments()``, ``cli correct``): every
+    leaf's codes come to the host as a list (``tb.unpack``) and each pair's
+    path is their concatenation (``hirschberg.join``)."""
+    ring = mesh if mesh is not None and mesh.shape.get("sp", 1) > 1 else None
+    if ring is not None and sp_min_len is None:
+        sp_min_len = ring_min_len()
+        initialize_logger().info(
+            "hirschberg: auto sp threshold %d bases (the shortest query B4 "
+            "runs in more than one pass); longer levels use the "
+            "ring-wavefront 'sp' axis", sp_min_len)
+    nw_fn, decode_fn = resolve(device, kernel)
+    P = len(queries)
+    if P == 0:
+        return [], np.zeros(0, np.int64)
+    leaves = _leaves(queries, targets, torch.device(device), kernel, nw_fn,
+                     decode_fn, ring, sp_min_len)
 
     with trace_range("hirschberg.join"):
         pair = np.concatenate([p for p, _, _ in leaves])
@@ -148,10 +172,28 @@ def hirschberg_align_batch(queries: list[str], targets: list[str], device,
     return paths, dists
 
 
+def hirschberg_align_packed(queries: list[str], targets: list[str], device,
+                            kernel: str = "diag") -> PackedPaths:
+    """The paths of :func:`hirschberg_align_batch` (no mesh) left on the
+    device (``Aligner.get_cigars()``, ``cli pipeline``): each base launch's
+    packed words stay there (``ops.tb_decode.decode_packed``), and a pair's
+    leaves become its segments, which ``PackedPaths.segments`` puts in the
+    list join's order.  No distance: the caller has the Myers score."""
+    nw_fn, _ = resolve(device, kernel)
+    out = PackedPaths(len(queries), device)
+    if queries:
+        for pair, qlo, (words, first) in _leaves(
+                queries, targets, torch.device(device), kernel, nw_fn,
+                functools.partial(decode_packed, kernel=kernel)):
+            out.add(pair, words, first, key=qlo)
+    count("hirschberg.pairs", len(queries))
+    return out
+
+
 def _solve_base(Q, T, pair, qlo, qhi, tlo, thi, nw_fn, decode_fn, kernel):
     """Banded NW of the base fragments, bucketed by radius and cut into
-    launches by ops.banded.launch_chunks; -> one (pair, qlo, paths) triple
-    per launch."""
+    launches by ops.banded.launch_chunks; -> one (pair, qlo, decode_fn's
+    result) triple per launch."""
     qs, ts = qhi - qlo, thi - tlo
     radius = np.maximum(8, pow2_at_least(np.maximum(np.maximum(qs, ts), 1)))
     out = []

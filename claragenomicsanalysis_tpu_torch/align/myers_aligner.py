@@ -33,9 +33,11 @@ import torch
 
 from ..ops.banded import launch_chunks, resolve
 from ..ops.myers import myers_bottom_row
+from ..ops.tb_decode import PackedPaths, decode_packed
 from ..utils.mathutils import round_up
 from ..utils.profiling import count, to_host, trace_range
-from .hirschberg import hirschberg_align_batch, pow2_at_least
+from .hirschberg import (hirschberg_align_batch, hirschberg_align_packed,
+                         pow2_at_least)
 
 #: traceback bytes per pair above which a pair goes to Hirschberg (the JAX
 #: package's XLA-kind cap, align/myers_aligner.py TB_BYTES_PER_PROBLEM)
@@ -64,11 +66,14 @@ def _hirschberg_into(paths, dists, hirsch, queries, targets, device, kernel):
 
 def myers_align_batch(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
                       tlen: np.ndarray, queries: list[str],
-                      targets: list[str], device, kernel: str = "diag"
-                      ) -> tuple[list[list[int]], np.ndarray]:
+                      targets: list[str], device, kernel: str = "diag",
+                      packed: bool = False) -> tuple:
     """-> (paths, dists) of the packed batch (``q (B, Lq)`` int8 codes with
     -1 PAD, int32 lengths); ``queries``/``targets`` are the pairs' strings,
-    which the pairs routed to Hirschberg use."""
+    which the pairs routed to Hirschberg use.  ``paths``: a code list a pair
+    (``Aligner.get_alignments()``), or with ``packed`` an
+    ``ops.tb_decode.PackedPaths`` left on the device, a banded pair one
+    segment and a Hirschberg pair its leaves (``Aligner.get_cigars()``)."""
     nw_fn, decode_fn = resolve(device, kernel)
     dev = torch.device(device)
     B, Lq = q.shape
@@ -79,7 +84,7 @@ def myers_align_batch(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
         _, scores = myers_bottom_row(qd, qld, td, tld)
         dists = to_host(scores).numpy().astype(np.int64)
 
-    paths: list[list[int]] = [[] for _ in range(B)]
+    paths = PackedPaths(B, dev) if packed else [[] for _ in range(B)]
     buckets: dict[int, list[int]] = {}
     hirsch: list[int] = []
     with trace_range("aligner.route"):
@@ -97,11 +102,22 @@ def myers_align_batch(q: np.ndarray, qlen: np.ndarray, t: np.ndarray,
             seld = torch.from_numpy(sel).to(dev)
             with trace_range("aligner.myers.banded"):
                 _, tb = nw_fn(qd[seld], qld[seld], td[seld], tld[seld], r)
+                if packed:
+                    paths.add(sel, *decode_packed(tb, qld[seld], tld[seld],
+                                                  r, kernel))
+                    continue
                 sub = decode_fn(tb, qld[seld], tld[seld], r)
             for b, p in zip(sel, sub):
                 paths[b] = p
     # the distance stays the Myers score, which the path's cost equals
-    _hirschberg_into(paths, None, hirsch, queries, targets, device, kernel)
+    if not packed:
+        _hirschberg_into(paths, None, hirsch, queries, targets, device,
+                         kernel)
+    elif hirsch:
+        with trace_range("aligner.hirschberg"):
+            paths.extend(hirschberg_align_packed(
+                [queries[b] for b in hirsch], [targets[b] for b in hirsch],
+                device, kernel), hirsch)
     return paths, dists
 
 

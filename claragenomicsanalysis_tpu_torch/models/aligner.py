@@ -4,12 +4,15 @@
 ``create_aligner(...)`` -> ``Aligner`` with ``add_alignment`` / ``align_all``
 / ``get_alignments`` / ``reset``; each ``Alignment`` carries the edit path,
 CIGAR, pretty view and a per-problem ``StatusType``, exactly as in the JAX
-package.  The DP runs on an explicit ``torch.device``: on ``cuda`` through
-the hand-written kernels of ops/, on ``cpu`` through their plain PyTorch
-versions.  ``kernel`` names the banded-NW kernel every algorithm's banded
-launches use (ops/banded.py): ``"diag"`` (the default, B1) or ``"row"``
-(B3, the JAX package's ``backend="pallas-row"``); both give the same paths,
-distances and statuses.  Algorithms:
+package.  ``get_cigars`` (the port's own) gives each pair's status and
+CIGAR alone: its paths stay on the device and only their text, written by
+the CIGAR kernel (ops/cigar.py), comes back.  The DP runs on an explicit
+``torch.device``: on ``cuda`` through the hand-written kernels of ops/, on
+``cpu`` through their plain PyTorch versions.  ``kernel`` names the
+banded-NW kernel every algorithm's banded launches use (ops/banded.py):
+``"diag"`` (the default, B1) or ``"row"`` (B3, the JAX package's
+``backend="pallas-row"``); both give the same paths, distances and
+statuses.  Algorithms:
 
 - ``ukkonen`` (default): banded NW with the adaptive band;
 - ``myers``: Myers bit-vector scores, then a banded re-run for the canonical
@@ -31,7 +34,9 @@ from ..align.myers_aligner import (banded_escalate_align_batch,
 from ..core.config import AlignerConfig
 from ..core.status import AlignmentType, StatusType
 from ..ops.banded import launch_chunks, resolve
+from ..ops.cigar import cigar_strings
 from ..ops.nw_diag import INF
+from ..ops.tb_decode import PackedPaths
 from ..utils import cigar
 from ..utils.genomeutils import pack_pairs
 from ..utils.profiling import to_host, trace_range
@@ -99,6 +104,7 @@ class Aligner:
         self._queries: list[str] = []
         self._targets: list[str] = []
         self._results: list[Alignment] | None = None
+        self._packed: tuple | None = None     # (statuses, PackedPaths)
 
     # ------------------------------------------------------------------ API
 
@@ -109,6 +115,7 @@ class Aligner:
         self._queries.append(query)
         self._targets.append(target)
         self._results = None
+        self._packed = None
         if (len(query) > cfg.max_query_length
                 or len(target) > cfg.max_target_length):
             # the slot stays so results are index-aligned; it is marked failed
@@ -126,10 +133,30 @@ class Aligner:
         self.sync_alignments()
         return self._results
 
+    def sync_cigars(self) -> None:
+        """Align the batch, unless done, for :meth:`get_cigars`: every path
+        stays packed on the device."""
+        if self._packed is None:
+            self._packed = self._run_packed()
+
+    def get_cigars(self, extended: bool = False
+                   ) -> list[tuple[StatusType, str]]:
+        """Each pair's status and CIGAR (``""`` unless SUCCESS), the text
+        :meth:`Alignment.convert_to_cigar` gives, written on the device by
+        the CIGAR kernel from the packed paths and read back once: no code
+        list and no ``Alignment`` a pair.  For the ``myers`` algorithm
+        (``cli pipeline``'s); the others raise ValueError."""
+        self.sync_cigars()
+        statuses, paths = self._packed
+        ok = np.array([s == StatusType.SUCCESS for s in statuses], bool)
+        texts = iter(cigar_strings(*paths.segments(ok), extended=extended))
+        return [(s, next(texts) if k else "") for s, k in zip(statuses, ok)]
+
     def reset(self) -> None:
         self._queries.clear()
         self._targets.clear()
         self._results = None
+        self._packed = None
 
     # ------------------------------------------------------------ internals
 
@@ -158,7 +185,6 @@ class Aligner:
     def _run_batch(self) -> list[Alignment]:
         if not self._queries:
             return []
-        cfg = self.config
         with trace_range("aligner.pack"):
             q, qlen, t, tlen = self._pack()
         dev, kernel = self.device, self.kernel
@@ -181,20 +207,43 @@ class Aligner:
 
         out = []
         with trace_range("aligner.results"):
-            for b, (qs, ts) in enumerate(zip(self._queries, self._targets)):
-                if (len(qs) > cfg.max_query_length
-                        or len(ts) > cfg.max_target_length):
-                    status = StatusType.EXCEEDED_MAX_LENGTH
-                elif dists[b] >= INF:
-                    status = StatusType.EXCEEDED_MAX_ALIGNMENT_DIFFERENCE
-                else:
-                    status = StatusType.SUCCESS
+            for b, (qs, ts, status) in enumerate(zip(
+                    self._queries, self._targets, self._statuses(dists))):
                 ok = status == StatusType.SUCCESS
                 out.append(Alignment(query=qs, target=ts, status=status,
                                      path=paths[b] if ok else [],
                                      edit_distance=int(dists[b]) if ok
                                      else -1))
         return out
+
+    def _statuses(self, dists) -> list[StatusType]:
+        """Each pair's status: too long, past the band (an INF distance),
+        or SUCCESS."""
+        cfg = self.config
+        return [StatusType.EXCEEDED_MAX_LENGTH
+                if (len(qs) > cfg.max_query_length
+                    or len(ts) > cfg.max_target_length)
+                else StatusType.EXCEEDED_MAX_ALIGNMENT_DIFFERENCE
+                if dists[b] >= INF else StatusType.SUCCESS
+                for b, (qs, ts) in enumerate(zip(self._queries,
+                                                 self._targets))]
+
+    def _run_packed(self) -> tuple:
+        """The batch through ``myers`` with its paths left on the device
+        -> (statuses, ops.tb_decode.PackedPaths)."""
+        if self.algorithm != "myers":
+            raise ValueError(f"get_cigars runs the myers algorithm, not "
+                             f"{self.algorithm!r}")
+        if not self._queries:
+            return [], PackedPaths(0, self.device)
+        with trace_range("aligner.pack"):
+            q, qlen, t, tlen = self._pack()
+        with trace_range("aligner.myers"):
+            paths, dists = myers_align_batch(
+                q, qlen, t, tlen, self._queries, self._targets, self.device,
+                self.kernel, packed=True)
+        with trace_range("aligner.results"):
+            return self._statuses(dists), paths
 
     def _run_ukkonen(self, q, qlen, t, tlen):
         """Banded NW at each pair's adaptive band (:func:`banded_align`);

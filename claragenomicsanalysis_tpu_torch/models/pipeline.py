@@ -4,6 +4,12 @@
 Candidate overlaps from the mapper are re-aligned base-exactly with the
 batched aligner (``myers``), and their PAF rows gain ``cg:Z`` CIGARs.  The
 mapper and every aligner run on the entry point's device.
+
+The pipeline keeps its paths on the device: it asks each aligner for
+CIGARs (``Aligner.get_cigars``), so the banded launches' packed paths and
+Hirschberg's leaves stay where the decoder wrote them, and the CIGAR kernel
+(``ops/cigar.py``) sends back their text alone.  No path is unpacked on the
+host, as ``cli correct`` and ``cli align`` still do (``get_alignments``).
 """
 
 from dataclasses import dataclass
@@ -96,11 +102,12 @@ def run_pipeline(parser: FastaParser, cfg: PipelineConfig,
                         algorithm="myers", device=device)
                     for i in chunk_ids:
                         aligner.add_alignment(*spans[i])
-                alignments = aligner.get_alignments()
+                aligner.sync_cigars()
                 with trace_range("pipeline.cigar"):
-                    for i, a in zip(chunk_ids, alignments):
-                        if a.status == StatusType.SUCCESS:
-                            overlaps[i].cigar = a.convert_to_cigar()
+                    for i, (status, cigar) in zip(chunk_ids,
+                                                  aligner.get_cigars()):
+                        if status == StatusType.SUCCESS:
+                            overlaps[i].cigar = cigar
                         else:
                             n_fail += 1
 

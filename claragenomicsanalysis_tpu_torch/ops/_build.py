@@ -47,6 +47,7 @@ SIGNATURES = {
     "cga_poa_consensus": (_PTR,) * 11 + (_INT,) * 5 + (_PTR,),
     "cga_poa_msa": (_PTR,) * 11 + (_INT,) * 8 + (_PTR,),
     "cga_poa_window": (_PTR,) * 13 + (_INT,) * 18 + (_PTR,),
+    "cga_cigar": (_PTR,) * 7 + (_INT,) * 3 + (_PTR,),
 }
 
 

@@ -23,7 +23,15 @@ by status.
 - :func:`decode_diag_torch` and :func:`decode_row_torch` are the plain
   PyTorch versions: the batch walks in lockstep, one tensor step per move.
 - :func:`traceback_paths_device` returns the paths as code lists, from the
-  layout its caller names.
+  layout its caller names: the list route, which ``Aligner.get_alignments()``
+  (``cli align``) and ``cli correct`` (``correct.windows`` reads matched
+  columns from the codes) take; it unpacks every path on the host
+  (``tb.unpack``).
+- :func:`decode_packed` keeps them on the device instead, cut to the words a
+  path of the traceback can fill, and :class:`PackedPaths` gathers such
+  launches, and Hirschberg's leaves, as segments of the batch's paths for
+  ``ops/cigar.py``: the route of ``Aligner.get_cigars()``, which the
+  pipeline (``cli pipeline``) takes.  No code of it reaches the host.
 """
 
 import numpy as np
@@ -247,3 +255,97 @@ def traceback_paths_device(tb: torch.Tensor, qlen: torch.Tensor,
     packed = to_host(packed[:, first:]).numpy()
     with trace_range("tb.unpack"):
         return unpack_paths(packed, start - 16 * first)
+
+
+def decode_packed(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
+                  band_radius: int, kernel: str = "diag"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode a traceback of the layout ``kernel`` on the device and keep the
+    paths there: -> ``words (B, K)`` int32, the last K words of ``packed``,
+    which hold every move a path of this traceback can have (fewer than
+    4 R4 diagonals in the diag layout; qlen + tlen <= 2 Lq + r, Lq <= 4 R4,
+    in the row layout), and ``first (B,)`` int32, each path's first slot in
+    them."""
+    if kernel not in DECODERS:
+        raise ValueError(f"unknown traceback layout {kernel!r}")
+    packed, start = DECODERS[kernel](tb, qlen, tlen, band_radius)
+    R4 = tb.shape[0]
+    moves = 4 * R4 if kernel == "diag" else 8 * R4 + band_radius
+    tw = packed.shape[1]
+    k = min(tw, max(1, (moves + 15) // 16))
+    return packed[:, tw - k:].contiguous(), start - 16 * (tw - k)
+
+
+class PackedPaths:
+    """The edit paths of a batch of ``n`` pairs, left on ``device`` in B2's
+    packed form.  Each path is made of segments, rows of
+    :func:`decode_packed` launches (one a banded pair, one a Hirschberg
+    leaf), read in the order of their keys (a leaf's first query row)."""
+
+    def __init__(self, n: int, device):
+        self.n = n
+        self.device = torch.device(device)
+        self._words: list[torch.Tensor] = []    # (m, K) int32 a launch
+        self._first: list[torch.Tensor] = []    # (m,) int32
+        self._owner: list[np.ndarray] = []      # (m,) the rows' paths
+        self._key: list[np.ndarray] = []        # (m,) their order in them
+
+    def add(self, owner, words: torch.Tensor, first: torch.Tensor,
+            key=None) -> None:
+        """Keep the rows of one :func:`decode_packed` launch, row k a
+        segment of path ``owner[k]``, ordered in it by ``key[k]``."""
+        owner = np.asarray(owner, np.int64)
+        self._words.append(words)
+        self._first.append(first)
+        self._owner.append(owner)
+        self._key.append(np.zeros_like(owner) if key is None
+                         else np.asarray(key, np.int64))
+
+    def extend(self, other: "PackedPaths", owner) -> None:
+        """Take ``other``'s segments, its path p as path ``owner[p]``."""
+        owner = np.asarray(owner, np.int64)
+        self._words += other._words
+        self._first += other._first
+        self._owner += [owner[o] for o in other._owner]
+        self._key += other._key
+
+    def segments(self, keep: np.ndarray) -> tuple:
+        """The paths ``keep`` marks (``(n,)`` bool), in order, as
+        ``ops.cigar``'s ``(words, seg_base, seg_first, seg_end, path_seg)``
+        on the device.  The host sends each segment's path and key and each
+        launch's shape in one copy; the device puts the segments in order by
+        one stable sort of a combined key (the order of the list join's
+        ``lexsort((key, path))``) and builds the rest."""
+        with trace_range("paths.segments"):
+            dev = self.device
+            m = np.array([w.shape[0] for w in self._words], np.int64)
+            k = np.array([w.shape[1] for w in self._words], np.int64)
+            owner = np.concatenate([np.zeros(0, np.int64)] + self._owner)
+            key = np.concatenate([np.zeros(0, np.int64)] + self._key)
+            ids = np.flatnonzero(keep)
+            sizes = [len(owner)] * 2 + [len(m)] * 3 + [self.n, len(ids)]
+            host = np.concatenate([
+                owner * (int(key.max(initial=0)) + 1) + key, owner,
+                np.cumsum(m * k) - m * k, k, m,
+                np.asarray(keep, np.int64), ids])
+            sort_key, owner, off, k, m, keep, ids = torch.from_numpy(
+                host).to(dev).split(sizes)
+            order = torch.sort(sort_key, stable=True).indices
+            order = order[keep[owner[order]].bool()]
+            launch = torch.repeat_interleave(
+                torch.arange(len(m), device=dev), m,
+                output_size=sizes[0])
+            row = torch.arange(sizes[0], device=dev) - (m.cumsum(0) - m)[
+                launch]
+            launch = launch[order]
+            path_seg = torch.zeros(len(ids) + 1, dtype=torch.int64,
+                                   device=dev)
+            path_seg[1:] = torch.bincount(owner[order], minlength=self.n)[
+                ids].cumsum(0)
+            words = (torch.cat([w.reshape(-1) for w in self._words])
+                     if self._words
+                     else torch.zeros(0, dtype=torch.int32, device=dev))
+            first = (torch.cat(self._first) if self._first
+                     else torch.zeros(0, dtype=torch.int32, device=dev))
+            return (words, off[launch] + k[launch] * row[order],
+                    first[order].long(), 16 * k[launch], path_seg)

@@ -1,8 +1,8 @@
 """The port's overlap -> CIGAR pipeline (claragenomicsanalysis_tpu_torch/
 models/pipeline.py, ``cli pipeline``) on the CPU: the golden byte for byte,
-its CIGARs against their spans, batching, the length filter and the span
-buckets against the JAX package's expression.  The ``cuda`` twin of the
-golden skips without a card."""
+its CIGARs against their spans and against the list route's, batching, the
+length filter and the span buckets against the JAX package's expression.
+The ``cuda`` twin of the golden skips without a card."""
 
 import contextlib
 import io
@@ -14,14 +14,20 @@ import pytest
 import torch
 
 from claragenomicsanalysis_tpu_torch import cli
-from claragenomicsanalysis_tpu_torch.core.config import (MapperConfig,
+from claragenomicsanalysis_tpu_torch.core.config import (CorrectConfig,
+                                                         MapperConfig,
                                                          PipelineConfig)
+from claragenomicsanalysis_tpu_torch.core.status import StatusType
 from claragenomicsanalysis_tpu_torch.io.fasta import (FastaParser,
                                                       FastaSequence)
 from claragenomicsanalysis_tpu_torch.models import pipeline
+from claragenomicsanalysis_tpu_torch.models.aligner import create_aligner
+from claragenomicsanalysis_tpu_torch.models.correct import correct_reads
 from claragenomicsanalysis_tpu_torch.models.mapper import map_all_vs_all
 from claragenomicsanalysis_tpu_torch.simulators import (NoisyReadSimulator,
                                                         PoissonGenomeSimulator)
+from claragenomicsanalysis_tpu_torch.utils import profiling
+from claragenomicsanalysis_tpu_torch.utils.cigar import path_to_cigar
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "data")
@@ -105,6 +111,69 @@ def small_run(small_parser):
     res = pipeline.run_pipeline(small_parser, SMALL, device="cpu")
     assert {o.relative_strand for o in res.overlaps} == {"+", "-"}
     return res
+
+
+#: the mixed run's mapper settings
+MIXED = MapperConfig(kmer_size=11, window_size=5, min_overlap_len=50,
+                     min_overlap_fraction=0.2, min_bases_per_residue=500)
+
+
+@pytest.fixture(scope="module")
+def mixed_parser():
+    """Three reads of 2,500 bases, whose overlaps pad past 2,048 and go to
+    Hirschberg, and five of 400, whose overlaps stay banded."""
+    genome = PoissonGenomeSimulator(seed=5).build_reference(2800)
+    sim = NoisyReadSimulator(seed=5, error_rate=0.04)
+    reads = (sim.generate_reads(genome, 3, 2500, "long")
+             + sim.generate_reads(genome, 5, 400, "short"))
+    return FastaParser("<mem>", records=[FastaSequence(r.name, r.seq)
+                                         for r in reads])
+
+
+def test_cigars_made_on_the_device_equal_the_list_route(mixed_parser):
+    """Every overlap's CIGAR, from the paths kept packed on the device, is
+    path_to_cigar of get_alignments()' path; the counters name the paths,
+    segments (a leaf each past Hirschberg) and bytes the kernel wrote."""
+    with profiling.stage_times() as st:
+        res = pipeline.run_pipeline(mixed_parser, PipelineConfig(
+            mapper=MIXED), device="cpu")
+    spans = pipeline.overlap_spans(res.overlaps, mixed_parser)
+    buckets = pipeline.span_buckets(spans)
+    want, n_fail = [""] * len(spans), 0
+    for blen, idxs in buckets.items():
+        al = create_aligner(blen, blen, len(idxs),
+                            band_radius=min(256, blen), algorithm="myers",
+                            device="cpu")
+        for i in idxs:
+            al.add_alignment(*spans[i])
+        for i, a in zip(idxs, al.get_alignments()):
+            if a.status == StatusType.SUCCESS:
+                want[i] = path_to_cigar(a.path)
+            else:
+                n_fail += 1
+    assert max(buckets) > 2048 and min(buckets) <= 512
+    assert [o.cigar for o in res.overlaps] == want
+    assert (res.n_aligned, res.n_align_failed) == (len(spans) - n_fail,
+                                                   n_fail)
+    c = st.counters
+    assert 0 < c["hirschberg.pairs"] < res.n_aligned
+    assert c["cigar.paths"] == res.n_aligned
+    assert c["cigar.segments"] > c["cigar.paths"]
+    assert c["cigar.bytes"] == sum(len(o.cigar) + 1 for o in res.overlaps
+                                   ) - n_fail
+    assert "tb.unpack" not in st.calls
+
+
+def test_correct_makes_no_cigars(mixed_parser):
+    """cli correct reads its paths as code lists: the CIGAR kernel never
+    runs, while its Hirschberg and banded paths are unpacked."""
+    with profiling.stage_times() as st:
+        correct_reads(mixed_parser, CorrectConfig(mapper=MIXED,
+                                                  max_support=7),
+                      device="cpu")
+    assert st.counters.get("cigar.paths", 0) == 0
+    assert st.counters["hirschberg.pairs"] > 0
+    assert "tb.unpack" in st.calls
 
 
 @pytest.mark.parametrize("batch_size", [1, 7])

@@ -26,11 +26,15 @@ MAPPER = MapperConfig(kmer_size=11, window_size=5, min_overlap_len=50,
 #: long reads, whose overlaps pad past 2,048 and go to Hirschberg, and five
 #: short ones, whose overlaps stay banded
 COMMON = {"overlaps.filter", "overlaps.spans", "overlaps.buckets",
-          "aligner.add", "aligner.route", "aligner.results", "tb.unpack",
-          "host.readback", "hirschberg.pack", "hirschberg.join",
-          "mapper.merge", "mapper.overlaps"}
-PIPELINE_RANGES = COMMON | {"pipeline.cigar", "pipeline.paf"}
-CORRECT_RANGES = COMMON | {"windows.columns", "windows.supports",
+          "aligner.add", "aligner.route", "aligner.results",
+          "host.readback", "hirschberg.pack", "mapper.merge",
+          "mapper.overlaps"}
+#: the list route's ranges, which the pipeline (its paths kept on the
+#: device) no longer enters
+LIST_ROUTE = {"tb.unpack", "hirschberg.join"}
+PIPELINE_RANGES = COMMON | {"pipeline.cigar", "pipeline.paf",
+                            "paths.segments"}
+CORRECT_RANGES = COMMON | LIST_ROUTE | {"windows.columns", "windows.supports",
                            "poa.groups", "poa.pack", "poa.decode",
                            "correct.join", "correct.part"}
 
@@ -178,6 +182,7 @@ def test_kernel_span_counts_launches_outside_kernel_times():
 def test_pipeline_enters_its_leaf_ranges(pipeline_runs):
     _, _, st = pipeline_runs
     assert PIPELINE_RANGES <= set(st.calls)
+    assert not LIST_ROUTE & set(st.calls)
     assert st.launches() == {}              # plain versions on the CPU
     assert st.counters["hirschberg.pairs"] > 0
     assert st.counters["readback"] == st.calls["host.readback"] > 0
