@@ -151,8 +151,9 @@ Phases, one line or more each:
      a path: (a) phase 20's map at full width on the 'rep' axis, rows
      equal to phase 20's, its wall, Mbp/s, each rank's stages, the
      all_to_all's bytes and ms and peak memory; (b) phase 22's correction
-     on both views (map on 'rep', POA on 'data'), corrected reads equal to
-     phase 22's, corrected bases/s and each rank's kernel share; (c)
+     on both views (map on 'rep', reads dealt on 'data'), corrected reads
+     equal to phase 22's, corrected bases/s and each rank's kernel share;
+     (c)
      ``ukkonen`` on 'data' on phase 5's pairs (equal to phase 5), phase
      12's windows on 'data' through both POA routes (equal to phase 12),
      and ``hirschberg-myers`` on the 'sp' ring with its levels of 4,096
@@ -3529,8 +3530,8 @@ def phase_multi_rank(refs: dict) -> dict:
     walls = [r["correct"]["wall"] for r in ranks]
     wall = max(walls)
     print(f"phase 23b correct on two ranks ({refs['correct_bases']} bases, "
-          f"map on rep, POA on data): wall {wall:.3f} s (slowest rank) = "
-          f"{refs['correct_bases'] / wall:.1f} corrected bases/s; "
+          f"map on rep, reads dealt on data): wall {wall:.3f} s (slowest "
+          f"rank) = {refs['correct_bases'] / wall:.1f} corrected bases/s; "
           + per_rank("correct", lambda c: (
               f"wall {c['wall']:.3f} s, kernel share "
               f"{sum(c['kernel_ms'].values()) / (c['wall'] * 1e3):.4f} "

@@ -382,8 +382,8 @@ def build_parser() -> argparse.ArgumentParser:
     co.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where mapping, alignment and POA run (cuda: the "
                          "hand-written kernels)")
-    _add_devices_flag(co, "shard matching (rep axis) + POA (data axis) over "
-                          "this many devices")
+    _add_devices_flag(co, "shard matching (rep axis) and deal the reads "
+                          "(data axis) over this many devices")
     co.set_defaults(fn=cmd_correct)
     return ap
 

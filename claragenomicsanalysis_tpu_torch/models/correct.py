@@ -10,10 +10,13 @@ point's device; the window supports are host NumPy, as in the JAX package.
 each part of reads, in the JAX package's files, and a killed run resumes to
 the same result.  ``mesh`` splits into its two views
 (parallel.mesh.axis_meshes): matching shards over every rank on 'rep'
-(the resumable map too), POA windows over every rank on 'data'; the
-alignments run whole on every rank, as in the JAX package.  The span and
-depth buckets come from the whole input, never from a rank's share, and
-rank 0 alone writes the checkpoint files.
+(the resumable map too), and the reads are dealt over every rank on
+'data' (:func:`deal_reads`): each rank aligns, windows and polishes its
+own reads and the corrected reads are gathered, where the JAX package
+runs the alignments whole on every rank.  A read's correction depends
+only on its own query-side overlaps, and the span and depth buckets come
+from the whole input, never from a rank's share, so the result is the
+one-rank result.  Rank 0 alone writes the checkpoint files.
 
 Left out on purpose: ``core.bufferplan.plan_poa_batch`` and the one-behind
 drain's TPU sizing.  A ``Batch`` cuts its own launches by the device bytes
@@ -23,21 +26,22 @@ still cuts the jobs into batches, and no cut changes a result.
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..core.config import BatchSize, CorrectConfig
 from ..core.status import StatusType
 from ..core.types import Overlap
 from ..io.fasta import FastaParser
 from ..models.aligner import create_aligner
-from ..models.mapper import map_all_vs_all, resolve_device
+from ..models.mapper import Overlapper, map_all_vs_all, resolve_device
 from ..models.pipeline import overlap_spans, span_buckets, within_length
 from ..models.poa import POA_MEM_BUDGET as POA_MEM_BUDGET
 from ..models.poa import create_batch
 from ..utils.genomeutils import reverse_complement
-from ..utils.profiling import trace_range
+from ..utils.profiling import count, to_host, trace_range
 
 # POA_MEM_BUDGET: device bytes of one POA launch; models.poa cuts each
 # polish batch's launches by it, as the JAX package plans its dispatches
@@ -58,6 +62,11 @@ class CorrectResult:
     n_windows: int          # total backbone windows
     n_polished: int         # windows that went through POA successfully
     n_window_failed: int    # POA-attempted windows that kept the backbone
+    #: the mapper's overlaps, (8, n) rows in canonical order (query,
+    #: target, query start and end, target start and end, residues,
+    #: strand: 1 for -), the ones too long to align included; left out of
+    #: ``==`` and ``repr``, which compare and show the corrected reads
+    rows: np.ndarray | None = field(default=None, compare=False, repr=False)
 
 
 def _matched_pairs(path: list[int], o: Overlap):
@@ -199,7 +208,7 @@ def depth_bucket(n_seqs: int, max_support: int) -> int:
 
 def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
                     windows_per_dispatch: int | None,
-                    device="cuda", mesh=None) -> tuple[list[str], int]:
+                    device="cuda") -> tuple[list[str], int]:
     """POA consensus for each job (= [backbone, support...]) on ``device``.
     Returns the consensus strings (backbone kept where POA fails or gives
     an empty consensus) and the failure count.
@@ -208,8 +217,7 @@ def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
     (:func:`_polish_batch_size`); a bucket is one batch, or batches of
     ``windows_per_dispatch`` jobs.  A batch enqueues its launches in
     generate_poa and the previous batch is read back after that, so the
-    host packs one batch while the card runs the one before.  ``mesh``
-    splits each batch's windows over its 'data' axis."""
+    host packs one batch while the card runs the one before."""
     kernel = poa_kernel(cfg)
     buckets: dict[int, list[int]] = {}
     for i, seqs in enumerate(jobs):
@@ -238,7 +246,7 @@ def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
             chunk = [jobs[i] for i in sel]
             with trace_range("poa.groups"):
                 batch = create_batch(batch_size=bs, max_poas=len(chunk),
-                                     device=device, kernel=kernel, mesh=mesh)
+                                     device=device, kernel=kernel)
                 for seqs in chunk:
                     batch.add_poa_group(seqs)
             batch.generate_poa()
@@ -255,7 +263,7 @@ def _polish_windows(jobs: list[list[str]], cfg: CorrectConfig,
 
 def _correct_part(read_ids: list[int], by_query: dict[int, list[Overlap]],
                   parser: FastaParser, cfg: CorrectConfig,
-                  windows_per_dispatch: int | None, device, mesh=None):
+                  windows_per_dispatch: int | None, device):
     """Correct one contiguous part of reads.  Returns (seqs, n_windows,
     n_polished, n_failed)."""
     part_overlaps: list[Overlap] = []
@@ -299,12 +307,108 @@ def _correct_part(read_ids: list[int], by_query: dict[int, list[Overlap]],
 
     with trace_range("correct.poa"):
         cons, n_failed = _polish_windows(jobs, cfg, windows_per_dispatch,
-                                         device, mesh)
+                                         device)
     with trace_range("correct.join"):
         for (slot, wi), c in zip(slots, cons):
             pieces[slot][wi] = c
         seqs = ["".join(p) for p in pieces]
     return seqs, n_windows, len(jobs) - n_failed, n_failed
+
+
+def read_areas(read_ids: list[int],
+               by_query: dict[int, list[Overlap]]) -> list[int]:
+    """Each read's DP area: the sum of query span x target span over its
+    query-side overlaps, the cells its alignments cover."""
+    return [sum((o.query_end_position_in_read
+                 - o.query_start_position_in_read)
+                * (o.target_end_position_in_read
+                   - o.target_start_position_in_read)
+                for o in by_query.get(rid, ())) for rid in read_ids]
+
+
+def deal_reads(areas: list[int], ranks: int) -> list[list[int]]:
+    """The indices of ``areas`` dealt over ``ranks``: the largest area first
+    (the lower index on a tie), each to the rank with the least area so far
+    (then the fewest reads, then the lower rank); each rank's indices in
+    order.  A function of ``areas`` alone, so every rank deals alike."""
+    load = [0] * ranks
+    deal: list[list[int]] = [[] for _ in range(ranks)]
+    for i in sorted(range(len(areas)), key=lambda i: (-areas[i], i)):
+        r = min(range(ranks), key=lambda k: (load[k], len(deal[k]), k))
+        deal[r].append(i)
+        load[r] += areas[i]
+    return [sorted(d) for d in deal]
+
+
+def gather_reads(seqs: list[str], stats: list[int], group,
+                 device) -> list[tuple[list[str], list[int]]]:
+    """Every rank's (corrected reads, [n_windows, n_polished, n_failed]) in
+    group rank order.  The reads travel as one byte tensor and the counts
+    and read lengths as one word tensor, on ``device`` (the card, under
+    NCCL); both come back in one read-back each."""
+    from ..parallel import comm
+    blobs = [s.encode() for s in seqs]
+    text = np.frombuffer(bytearray(b"".join(blobs)), np.uint8)
+    words = np.array(list(stats) + [len(b) for b in blobs], np.int64)
+    texts = comm.all_gather(torch.from_numpy(text).to(device), group)
+    words = comm.all_gather(torch.from_numpy(words).to(device), group)
+    all_text = to_host(torch.cat(texts)).numpy().tobytes()
+    all_words = to_host(torch.cat(words)).tolist()
+    out = []
+    pos = w = 0
+    for rank_words in words:
+        counts = all_words[w:w + rank_words.shape[0]]
+        w += rank_words.shape[0]
+        rank_seqs = []
+        for n in counts[3:]:
+            rank_seqs.append(all_text[pos:pos + n].decode())
+            pos += n
+        out.append((rank_seqs, counts[:3]))
+    return out
+
+
+def _correct_dealt(read_ids: list[int], by_query: dict[int, list[Overlap]],
+                   parser: FastaParser, cfg: CorrectConfig, part_size: int,
+                   windows_per_dispatch: int | None, device, mesh):
+    """Correct ``read_ids`` over the 'data' axis of ``mesh``: the reads are
+    dealt by DP area (:func:`read_areas`, :func:`deal_reads`), each rank
+    corrects its own in parts of ``part_size`` reads, and the corrected
+    reads are gathered.  Returns (seqs in the order of ``read_ids``,
+    n_windows, n_polished, n_failed), the same on every rank."""
+    from ..parallel import comm
+    group = mesh.group("data")
+    me = mesh.axis_index("data")
+    with trace_range("ranks.deal"):
+        areas = read_areas(read_ids, by_query)
+        deal = deal_reads(areas, mesh.shape["data"])
+        loads = [sum(areas[i] for i in share) for share in deal]
+    count("shard.area", loads[me])
+    count("shard.area_total", sum(loads))
+    count("shard.area_max", max(loads))
+    count("shard.ranks", len(loads))
+    count("shard.deals")
+    mine = [read_ids[i] for i in deal[me]]
+    seqs: list[str] = []
+    stats = [0, 0, 0]
+    for start in range(0, len(mine), part_size):
+        with trace_range("correct.part"):
+            part_seqs, *part_stats = _correct_part(
+                mine[start:start + part_size], by_query, parser, cfg,
+                windows_per_dispatch, device)
+        seqs += part_seqs
+        stats = [a + b for a, b in zip(stats, part_stats)]
+    # the wait for the slowest rank, apart from the transfer
+    with trace_range("ranks.wait"):
+        comm.barrier(group, device)
+    with trace_range("comm.gather_reads"):
+        shares = gather_reads(seqs, stats, group, device)
+    out: list[str | None] = [None] * len(read_ids)
+    totals = [0, 0, 0]
+    for share, (rank_seqs, rank_stats) in zip(deal, shares):
+        for i, seq in zip(share, rank_seqs):
+            out[i] = seq
+        totals = [a + b for a, b in zip(totals, rank_stats)]
+    return out, *totals
 
 
 def correct_reads(parser: FastaParser, cfg: CorrectConfig,
@@ -316,12 +420,18 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
 
     work_dir: enables checkpoint/resume (map pairs + read parts).
     fail_after_parts: fault-injection hook for resume tests.
-    mesh: rep-sharded matching and data-sharded POA (every rank calls with
-    the same reads and gets every corrected read)."""
+    mesh: rep-sharded matching, and the reads dealt over every rank
+    (every rank calls with the same reads and gets every corrected read).
+    Under a mesh of more than one rank without ``work_dir`` the whole
+    input is one deal, each rank cutting its share into parts of
+    ``part_size``; with ``work_dir`` each part of ``part_size`` reads is
+    dealt, corrected and gathered in turn, and rank 0 writes its file, so
+    a killed run resumes part by part as on one rank."""
     from ..parallel.mesh import axis_meshes
     from ..parallel.multihost import is_writer
     device = resolve_device(device)
     mesh_data, mesh_rep = axis_meshes(mesh)
+    dealt = mesh_data is not None and mesh_data.size > 1
     writer = is_writer()
     n = parser.get_num_sequences()
     names = [parser.get_sequence_by_id(i).name for i in range(n)]
@@ -332,9 +442,11 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
             overlaps, _, _ = map_all_vs_all_resumable(
                 parser, cfg.mapper, os.path.join(work_dir, "map"),
                 device=device, mesh=mesh_rep)
+            rows = Overlapper.overlaps_to_rows(overlaps)
         else:
-            overlaps = map_all_vs_all(parser, cfg.mapper, device=device,
-                                      mesh=mesh_rep).overlaps
+            mapped = map_all_vs_all(parser, cfg.mapper, device=device,
+                                    mesh=mesh_rep)
+            overlaps, rows = mapped.overlaps, mapped.rows
 
     # supports come from overlaps where the corrected read is the QUERY
     # (all-vs-all emits both orders of each pair, so every partner appears)
@@ -344,8 +456,11 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
             if within_length(o, cfg.max_alignment_length):
                 by_query.setdefault(o.query_read_id, []).append(o)
 
-    parts = [list(range(s, min(s + part_size, n)))
-             for s in range(0, n, part_size)]
+    if dealt and not work_dir:
+        parts = [list(range(n))]
+    else:
+        parts = [list(range(s, min(s + part_size, n)))
+                 for s in range(0, n, part_size)]
     manifest_path = (os.path.join(work_dir, "correct_manifest.json")
                      if work_dir else None)
     done: dict[str, bool] = {}
@@ -365,12 +480,17 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
             part_seqs = part["seqs"]
             stats = part["stats"]
         else:
-            # the part's own time is its glue and the freeing of its
-            # paths and windows when _correct_part returns
-            with trace_range("correct.part"):
-                part_seqs, *stats = _correct_part(
-                    read_ids, by_query, parser, cfg, windows_per_dispatch,
-                    device, mesh_data)
+            if dealt:
+                part_seqs, *stats = _correct_dealt(
+                    read_ids, by_query, parser, cfg, part_size,
+                    windows_per_dispatch, device, mesh_data)
+            else:
+                # the part's own time is its glue and the freeing of its
+                # paths and windows when _correct_part returns
+                with trace_range("correct.part"):
+                    part_seqs, *stats = _correct_part(
+                        read_ids, by_query, parser, cfg,
+                        windows_per_dispatch, device)
             if part_file and writer:
                 from ..parallel.manifest import write_aside
                 write_aside(part_file, json.dumps({"seqs": part_seqs,
@@ -385,7 +505,7 @@ def correct_reads(parser: FastaParser, cfg: CorrectConfig,
         for i in range(3):
             totals[i] += stats[i]
 
-    return CorrectResult(names, seqs, *totals)
+    return CorrectResult(names, seqs, *totals, rows=rows)
 
 
 def write_fasta(result: CorrectResult, path: str) -> None:

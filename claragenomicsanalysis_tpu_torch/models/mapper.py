@@ -454,6 +454,17 @@ class Overlapper:
                             "+" if c[7] == 0 else "-") for c in cols]
 
     @staticmethod
+    def overlaps_to_rows(overlaps: list[Overlap]) -> np.ndarray:
+        """:meth:`rows_to_overlaps` undone: (8, n) int64 rows."""
+        return np.array([[o.query_read_id, o.target_read_id,
+                          o.query_start_position_in_read,
+                          o.query_end_position_in_read,
+                          o.target_start_position_in_read,
+                          o.target_end_position_in_read, o.num_residues,
+                          0 if o.relative_strand == "+" else 1]
+                         for o in overlaps], np.int64).reshape(-1, 8).T
+
+    @staticmethod
     def get_overlaps(anchors: dict, cfg: MapperConfig) -> list[Overlap]:
         return Overlapper.rows_to_overlaps(
             Overlapper.get_overlap_rows(anchors, cfg))

@@ -17,19 +17,23 @@ process a rank, so here every mesh member is a process:
   nothing retries with another backend;
 - :func:`run_ranks` starts the ranks (``spawn``), runs one importable
   function in each and brings every rank's return value back, for the CLI's
-  ``-d N``, the tests and the smoke run.
+  ``-d N``, the tests and the smoke run;
+- :class:`RankPool` keeps a world up across calls, the caller as rank 0:
+  for a library user who runs one job after another on the same ranks.
 
 Library functions are SPMD: every rank calls them with the same host inputs
 and gets the whole, merged result.  Only rank 0 writes files (see
 :func:`is_writer`).
 """
 
+import atexit
 import logging
 import os
 import pickle
 import shutil
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -152,11 +156,15 @@ def make_global_mesh(rep: int = 1, sp: int = 1):
 class RanksFailed(RuntimeError):
     """A rank process exited with a non-zero code, or the ranks ran past
     their time; ``exitcodes`` has one entry a rank, None for a rank that
-    was still running and was stopped."""
+    was still running and was stopped.  ``errors``: the tracebacks that
+    ranks reported, by rank (a :class:`RankPool`'s workers send theirs)."""
 
-    def __init__(self, exitcodes: list):
+    def __init__(self, exitcodes: list, errors: dict | None = None):
         self.exitcodes = exitcodes
-        super().__init__(f"rank exit codes {exitcodes}")
+        self.errors = errors or {}
+        last = "".join(f"; rank {r}: {tb.strip().splitlines()[-1]}"
+                       for r, tb in sorted(self.errors.items()))
+        super().__init__(f"rank exit codes {exitcodes}{last}")
 
     @property
     def first_error(self) -> int:
@@ -233,3 +241,193 @@ def _stop(procs) -> None:
         if p.is_alive():
             p.kill()
             p.join()
+
+
+def _worker_cores(world_size: int) -> list:
+    """A core for each of ranks 1 .. n-1, none of them the caller's: where
+    the caller is pinned to fewer cores than the host has (the benchmark
+    pins its process to one, and spawned children inherit that), the
+    host's other cores in order; else None, and the workers keep the
+    caller's set."""
+    if not hasattr(os, "sched_getaffinity"):
+        return [None] * (world_size - 1)
+    mine = os.sched_getaffinity(0)
+    spare = [c for c in range(os.cpu_count() or 1) if c not in mine]
+    if len(spare) < world_size - 1:
+        return [None] * (world_size - 1)
+    return spare[:world_size - 1]
+
+
+def _pool_worker(rank: int, world_size: int, init_method: str, devices,
+                 conn, core, log_level: str) -> None:
+    """Rank ``rank`` of a :class:`RankPool`: join the group, then run each
+    ``(fn, args)`` that rank 0 sends, answering None, or the traceback and
+    leaving (the world is then out of step), until rank 0 sends None or
+    goes away."""
+    initialize_logger(log_level)
+    if core is not None:
+        try:
+            os.sched_setaffinity(0, {core})
+        except OSError:
+            pass            # a core the host does not give: keep the set
+        torch.set_num_threads(1)
+    elif torch.device(devices[rank]).type == "cpu":
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    initialize_distributed(init_method, world_size, rank, devices=devices)
+    while True:
+        try:
+            task = conn.recv()
+        except EOFError:
+            task = None                 # rank 0 is gone
+        if task is None:
+            break
+        fn, args = task
+        try:
+            fn(*args)
+        except Exception:
+            conn.send(traceback.format_exc())
+            os._exit(1)
+        conn.send(None)
+    destroy_distributed()
+
+
+class RankPool:
+    """A world of ``world_size`` ranks that stays up across calls: the
+    caller is rank 0 and :meth:`run` runs one importable function on every
+    rank in lockstep.  Ranks 1 .. n-1 are started once (``spawn``), each on
+    a core of its own where the caller is pinned (:func:`_worker_cores`),
+    and the group is formed through a ``file://`` rendezvous as in
+    :func:`run_ranks`; where a rank is on a card, the kernels are built
+    before any worker starts.  :meth:`close` (also at interpreter exit)
+    ends the group and reaps every worker.
+
+        pool = RankPool(4, ["cuda:0", "cuda:1", "cuda:2", "cuda:3"])
+        for parser in jobs:
+            result = pool.run(correct_job, parser)   # rank 0's return
+        pool.close()
+    """
+
+    def __init__(self, world_size: int, devices=None,
+                 log_level: str = "INFO"):
+        import multiprocessing
+        devices = [str(d) for d in (devices if devices is not None
+                                    else default_devices(world_size))]
+        if len(devices) != world_size:
+            raise ValueError(f"{len(devices)} devices for {world_size} ranks")
+        if dist.is_initialized():
+            raise RuntimeError("this process is already a rank of a group")
+        if any(torch.device(d).type == "cuda" for d in devices):
+            from ..ops import _build
+            _build.build()          # once, before the workers load it
+        ctx = multiprocessing.get_context("spawn")
+        self._pid = os.getpid()
+        self._tmp = tempfile.mkdtemp(prefix="cga_pool_")
+        init = f"file://{os.path.join(self._tmp, 'rendezvous')}"
+        self._conns, self._procs = [], []
+        try:
+            for rank, core in zip(range(1, world_size),
+                                  _worker_cores(world_size)):
+                mine, theirs = ctx.Pipe()
+                p = ctx.Process(target=_pool_worker, daemon=True, args=(
+                    rank, world_size, init, devices, theirs, core,
+                    log_level))
+                p.start()
+                theirs.close()
+                self._conns.append(mine)
+                self._procs.append(p)
+            initialize_distributed(init, world_size, 0, devices=devices)
+        except BaseException:
+            self._abort()
+            raise
+        atexit.register(self.close)
+
+    def run(self, fn, *args):
+        """``fn(*args)`` on every rank; -> rank 0's return value.  A rank
+        that raises ends the pool: :class:`RanksFailed` for a worker, the
+        exception itself for rank 0."""
+        if self._procs is None:
+            raise RuntimeError("the pool is closed")
+        for c in self._conns:
+            c.send((fn, args))
+        try:
+            result = fn(*args)
+        except BaseException:
+            errors = self._replies(wait=False)
+            codes = self._codes(errors)
+            self._abort()
+            if errors:
+                raise RanksFailed(codes, errors)
+            raise
+        errors = self._replies(wait=True)
+        if errors:
+            codes = self._codes(errors)
+            self._abort()
+            raise RanksFailed(codes, errors)
+        return result
+
+    def _replies(self, wait: bool) -> dict:
+        """The tracebacks the workers sent, by rank; with ``wait``, after
+        every worker has answered or ended."""
+        from multiprocessing.connection import wait as ready
+        errors = {}
+        pending = dict(enumerate(self._conns, 1))
+        while pending:
+            busy = {p.sentinel: r for r, p in enumerate(self._procs, 1)
+                    if r in pending}
+            got = ready(list(pending.values()) + list(busy),
+                        timeout=None if wait else 0)
+            if not got:
+                break
+            for obj in got:
+                if obj in busy:
+                    r = busy[obj]
+                    if r not in pending or pending[r].poll():
+                        continue            # its answer is (was) in the pipe
+                    errors.setdefault(r, f"rank {r} exited with code "
+                                         f"{self._procs[r - 1].exitcode}")
+                    pending.pop(r)
+                    continue
+                r = next(k for k, c in pending.items() if c is obj)
+                try:
+                    reply = obj.recv()
+                except EOFError:
+                    reply = f"rank {r} closed its pipe"
+                if reply is not None:
+                    errors[r] = reply
+                pending.pop(r)
+        return errors
+
+    def _codes(self, errors: dict) -> list:
+        """Every rank's exit code, once the ranks that failed have left
+        (None for a rank still running)."""
+        for r in errors:
+            self._procs[r - 1].join(10)
+        return [0] + [p.exitcode for p in self._procs]
+
+    def close(self) -> None:
+        """End the group and reap every worker (idempotent; a no-op in a
+        process forked from the caller)."""
+        if self._procs is None or os.getpid() != self._pid:
+            return
+        for c in self._conns:
+            try:
+                c.send(None)
+            except OSError:
+                pass                    # the worker has gone
+        destroy_distributed()
+        for p in self._procs:
+            p.join(30)
+        self._abort()
+
+    def _abort(self) -> None:
+        """Stop the workers still running, reap them, end rank 0's group."""
+        if self._procs is None:
+            return
+        procs, self._procs = self._procs, None
+        _stop(procs)
+        for c in self._conns:
+            c.close()
+        destroy_distributed()
+        shutil.rmtree(self._tmp, ignore_errors=True)
+        atexit.unregister(self.close)

@@ -22,6 +22,7 @@ gloo each one goes through host memory.
 import numpy as np
 import torch
 
+from ..utils.profiling import to_host
 from . import comm
 from .shard import shard_slice
 
@@ -47,7 +48,7 @@ def _stripe(q, qlen, t, tlen, c0: int, mesh, want_rows: bool):
     tcol = tcol.clamp(0, max(S - 1, 0))[:, None]
     score = torch.zeros(B, dtype=torch.int32, device=dev)
     frontier = torch.zeros((B, 2), dtype=torch.int32, device=dev)
-    n_rows = int(qlen.max()) if B else 0       # the same on the whole line
+    n_rows = int(to_host(qlen.max())) if B else 0   # the same on the line
     for i in range(1, n_rows + 1):
         if d == 0:
             prev_col = torch.full((B,), i - 1, dtype=torch.int32, device=dev)
@@ -107,8 +108,8 @@ def ring_wavefront_nw_rows(q, qlen, t, tlen, mesh, device=None) -> np.ndarray:
     rows = torch.cat(comm.all_gather(stripe.T.contiguous(),
                                      mesh.group("sp")), 0).T
     rows = comm.all_gather_cat(rows.contiguous(), mesh.group("data"))
-    qlen = np.asarray(torch.as_tensor(qlen).cpu(), np.int32).reshape(-1, 1)
-    return np.concatenate([qlen, rows[:B, :Lt].cpu().numpy()], 1)
+    qlen = np.asarray(to_host(torch.as_tensor(qlen)), np.int32).reshape(-1, 1)
+    return np.concatenate([qlen, to_host(rows[:B, :Lt]).numpy()], 1)
 
 
 def ring_wavefront_nw(q, qlen, t, tlen, mesh, device=None) -> np.ndarray:
@@ -119,4 +120,4 @@ def ring_wavefront_nw(q, qlen, t, tlen, mesh, device=None) -> np.ndarray:
     part = _stripe(q, ql, ts, tl, c0, mesh, want_rows=False)
     score = comm.all_reduce(part, mesh.group("sp"))
     score = torch.where(ql == 0, tl, torch.where(tl == 0, ql, score))
-    return comm.all_gather_cat(score, mesh.group("data")).cpu().numpy()[:B]
+    return to_host(comm.all_gather_cat(score, mesh.group("data"))).numpy()[:B]

@@ -37,7 +37,7 @@ import torch.distributed as dist
 from ..ops import map_ops
 from ..ops.sketch import INVALID
 from ..utils.mathutils import round_up
-from ..utils.profiling import trace_range
+from ..utils.profiling import to_host, trace_range
 from . import comm
 
 
@@ -79,9 +79,9 @@ def gather_paths(scores: np.ndarray, paths: list, group, device):
     codes = np.concatenate([np.asarray(p, dtype=np.int8) for p in paths]
                            + [np.zeros(0, np.int8)])
     dev = torch.device(device)
-    scores, lens, codes = (comm.all_gather_cat(torch.from_numpy(a).to(dev),
-                                               group).cpu().numpy()
-                           for a in (scores, lens, codes))
+    scores, lens, codes = (to_host(comm.all_gather_cat(
+        torch.from_numpy(a).to(dev), group)).numpy()
+        for a in (scores, lens, codes))
     ends = np.cumsum(lens)
     return scores, [codes[e - n:e].tolist() for e, n in zip(ends, lens)]
 
@@ -106,7 +106,8 @@ def sharded_poa(program, seqs, weights, lens, n_seqs, mesh):
     sl = shard_slice(W + pad, n, mesh.axis_index("data"))
     out = program(*(a[sl] for a in args))
     group = mesh.group("data")
-    return tuple(comm.all_gather_cat(o, group).cpu().numpy()[:W] for o in out)
+    return tuple(to_host(comm.all_gather_cat(o, group)).numpy()[:W]
+                 for o in out)
 
 
 # ------------------------------------------------------------------- rep
@@ -164,7 +165,7 @@ def sharded_anchors(qidx_arrays: dict, tidx_arrays: dict, cfg, mesh,
     tblock = _rep_block(tidx_arrays, mesh)
     cap_local = round_up(cap, n_rep)
     lo, cum, total = map_ops.match_count(qidx_arrays, tblock)
-    total = int(total)
+    total = int(to_host(total))
     anchors = map_ops.match_expand(qidx_arrays, tblock, lo, cum,
                                    cap=min(total, cap_local),
                                    skip_self=cfg.skip_self_mappings)
@@ -175,7 +176,7 @@ def sharded_anchors(qidx_arrays: dict, tidx_arrays: dict, cfg, mesh,
     anchors["valid"] = anchors["valid"].bool()
     local = torch.tensor([total, int(total > cap_local)],
                          device=stacked.device)
-    totals = comm.all_reduce(local, group)
+    totals = to_host(comm.all_reduce(local, group))
     return anchors, int(totals[0]), bool(totals[1])
 
 
@@ -215,8 +216,8 @@ def _routed_sizes(qidx_arrays: dict, tblock: dict, qid0: int, n_reads: int,
     dest = _dest(qidx_arrays["read_id"], qid0, n_reads, n_rep)
     buckets = torch.zeros(n_rep, dtype=torch.int64,
                           device=cnt.device).index_add_(0, dest, cnt)
-    sizes = comm.all_gather_cat(torch.cat([total.reshape(1), buckets])[None],
-                                group).cpu()
+    sizes = to_host(comm.all_gather_cat(
+        torch.cat([total.reshape(1), buckets])[None], group))
     return lo, cum, sizes[:, 0], sizes[:, 1:]
 
 
@@ -245,7 +246,7 @@ def sharded_match_chain(qidx_arrays: dict, tidx_arrays: dict, cfg, mesh,
         anchors, _, overflow = sharded_anchors(
             qidx_arrays, tidx_arrays, cfg, mesh, cap=cap // n_rep)
         out = map_ops.chain_anchors(anchors, **_chain_kwargs(cfg))
-        return {k: v.cpu().numpy() for k, v in out.items()}, overflow
+        return {k: to_host(v).numpy() for k, v in out.items()}, overflow
 
     qid0, n_reads = _query_range(qidx_arrays, n_query_reads, first_read)
     tblock = _rep_block(tidx_arrays, mesh)
@@ -266,7 +267,7 @@ def sharded_match_chain(qidx_arrays: dict, tidx_arrays: dict, cfg, mesh,
     out = map_ops.chain_anchors(routed, **_chain_kwargs(cfg))
     flag = comm.all_reduce(torch.tensor([int(overflow)], device=lo.device),
                            group, op=dist.ReduceOp.MAX)
-    return out, bool(flag[0]) or overflow_cap
+    return out, bool(to_host(flag)[0]) or overflow_cap
 
 
 def _route(anchors: dict, qid0: int, n_reads: int, n_rep: int,

@@ -13,6 +13,7 @@ import contextlib
 import io
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -417,12 +418,71 @@ def _ring_case(_):
     return out
 
 
+def deal_settings() -> dict:
+    """The benchmark's ``correct_ont`` settings (``cli correct``'s, with
+    the cudamapper k 15 / w 15 defaults)."""
+    with open(os.path.join(ROOT, "cga_bench", "configs",
+                           "correct_ont.json")) as f:
+        return json.load(f)["settings"]
+
+
+def deal_config() -> CorrectConfig:
+    s = deal_settings()
+    return CorrectConfig(mapper=MapperConfig(**s["mapper"]),
+                         **{k: v for k, v in s.items() if k != "mapper"})
+
+
+def deal_inputs() -> dict[str, list[str]]:
+    """``reads``: 8 noisy reads of 400 bases at about 3x, a random read
+    with no overlaps among them (read 3); ``few``: two overlapping reads,
+    fewer than three or four ranks."""
+    rng = np.random.default_rng(43)
+    seqs = sim_reads(8, 1200, 400, seed=41, err=0.05)
+    genome = random_seq(1100, rng)
+    return {"reads": seqs[:3] + [random_seq(400, rng)] + seqs[3:],
+            "few": [mutate(genome[:1000], 20, rng),
+                    mutate(genome[100:], 20, rng)]}
+
+
+def _deal_case(work_dir):
+    """correct_reads with the reads dealt over 'data' on meshes of 2, 3 and
+    4 ranks, each inside a stage_times() block, and a run of the two reads
+    on three ranks stopped after its first part of one read, then
+    resumed."""
+    cfg = deal_config()
+    out = {}
+    for name, seqs in deal_inputs().items():
+        for n in (2, 3, 4):
+            mesh = make_mesh(data=n)
+            if mesh.coords is None:
+                continue
+            with profiling.stage_times() as st:
+                res = correct_reads(mem_parser(seqs), cfg, device="cpu",
+                                    mesh=mesh)
+            out[(name, n)] = (res.seqs, res.rows)
+            out[("traced", name, n)] = (dict(st.counters), st.host_ms())
+    mesh = make_mesh(data=3)
+    if mesh.coords is not None:
+        parser = mem_parser(deal_inputs()["few"])
+        work = os.path.join(work_dir, "deal")
+        try:
+            correct_reads(parser, cfg, work_dir=work, part_size=1,
+                          fail_after_parts=1, device="cpu", mesh=mesh)
+            stopped = None
+        except RuntimeError as e:
+            stopped = str(e)
+        res = correct_reads(parser, cfg, work_dir=work, part_size=1,
+                            device="cpu", mesh=mesh)
+        out["resumed"] = (stopped, res.seqs, sorted(os.listdir(work)))
+    return out
+
+
 CASES = {"mesh": _mesh_case, "banded": _banded_case,
          "aligner": _aligner_case, "poa": _poa_case,
          "hirschberg": _hirschberg_case, "compositions": _compositions_case,
          "map": _map_case, "match_chain": _match_chain_case,
          "ring": _ring_case, "matcher": _matcher_case,
-         "manifest": _manifest_case}
+         "manifest": _manifest_case, "deal": _deal_case}
 #: the cases this module's tests read
 OWN_CASES = ("mesh", "banded", "aligner", "poa", "hirschberg",
              "compositions", "map", "matcher", "manifest")
@@ -465,6 +525,12 @@ def work_dir(tmp_path_factory):
 @pytest.fixture(scope="module")
 def ranks(work_dir):
     return run_cases(OWN_CASES, work_dir)
+
+
+@pytest.fixture(scope="module")
+def deal_ranks(work_dir):
+    """The deal's cases, in a rank group of their own."""
+    return run_cases(("deal",), work_dir)
 
 
 def every_rank(ranks, case, key=None):
@@ -706,6 +772,104 @@ def test_manifest_read_on_rank_0_only(ranks):
     assert ranks[0]["manifest"] == json.loads(MANIFEST)
     for r in ranks[1:]:
         assert r["manifest"] == {"0": True, "2": True}
+
+
+@pytest.fixture(scope="module")
+def one_rank_deal():
+    """Each deal input corrected on one rank, and the benchmark's plain
+    reference's numbers for it (every read compared)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from cga_bench.reference.judge import judge_correct
+    out = {}
+    for name, seqs in deal_inputs().items():
+        res = correct_reads(mem_parser(seqs), deal_config(), device="cpu")
+        job = [(f"r{i}", s) for i, s in enumerate(seqs)]
+        numbers = judge_correct([job], [{"seqs": res.seqs,
+                                         "rows": res.rows.T}],
+                                deal_settings(), {"windows": 10**6}, 1,
+                                "cpu")
+        out[name] = (res, numbers)
+    return out
+
+
+@pytest.mark.parametrize("name", ["reads", "few"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_dealt_reads_equal_one_rank_and_the_reference(deal_ranks,
+                                                      one_rank_deal, name, n):
+    """correct_reads on a mesh of n ranks deals the reads over 'data': every
+    rank returns the one-rank reads byte for byte, which the reference
+    holds exactly (every number 0, every read compared)."""
+    from claragenomicsanalysis_tpu_torch.models.correct import (deal_reads,
+                                                                read_areas)
+    res, numbers = one_rank_deal[name]
+    seqs = deal_inputs()[name]
+    assert numbers["reads_compared"][0] == len(seqs)
+    assert all(v == 0 for v, lim in numbers.values() if lim is not None)
+    rows = res.rows.T
+    if name == "reads":
+        assert rows.shape[0] > 10 and not (rows[:, :2] == 3).any()
+    else:
+        assert len(seqs) < 3 and rows.shape[0] == 2
+    got = ([(res.seqs, res.rows)] if n == 1
+           else every_rank(deal_ranks, "deal", (name, n)))
+    assert len(got) == n
+    for g_seqs, g_rows in got:
+        assert g_seqs == res.seqs
+        np.testing.assert_array_equal(g_rows, res.rows)
+    by_query = {}
+    for o in res_overlaps(res):
+        by_query.setdefault(o.query_read_id, []).append(o)
+    deal = deal_reads(read_areas(list(range(len(seqs))), by_query), n)
+    assert sorted(i for share in deal for i in share) == list(range(len(seqs)))
+    if len(seqs) < n:
+        assert [] in deal
+
+
+def res_overlaps(res):
+    from claragenomicsanalysis_tpu_torch.models.mapper import Overlapper
+    return Overlapper.rows_to_overlaps(res.rows)
+
+
+def test_dealt_run_resumes_to_one_rank(deal_ranks, one_rank_deal):
+    """With a work directory each part of reads is dealt and gathered in
+    turn and rank 0 writes its file: a run stopped after its first part
+    resumes to the one-rank reads."""
+    res, _ = one_rank_deal["few"]
+    got = every_rank(deal_ranks, "deal", "resumed")
+    assert len(got) == 3
+    for stopped, seqs, _ in got:
+        assert stopped == "injected failure for resume test"
+        assert seqs == res.seqs
+    # as rank 0, the writer, saw them when it returned
+    assert got[0][2] == ["correct_manifest.json", "corrected_part_0.json",
+                         "corrected_part_1.json", "map"]
+
+
+def test_deal_balances_the_area():
+    from claragenomicsanalysis_tpu_torch.models.correct import deal_reads
+    assert deal_reads([5, 1, 4, 0, 0, 3], 2) == [[0, 1, 3, 4], [2, 5]]
+    assert deal_reads([0, 0, 0], 4) == [[0], [1], [2], []]
+    assert deal_reads([], 3) == [[], [], []]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_shard_counters_add_up_and_comm_is_traced(deal_ranks, n):
+    """Inside a stage_times() block every rank of the deal counts its own
+    share of the DP area, and the shares add up to the total each rank
+    counts; the exchanges, the deal, the wait and the gather are ranges,
+    and the exchanges are counted."""
+    traced = every_rank(deal_ranks, "deal", ("traced", "reads", n))
+    assert len(traced) == n
+    areas = [c["shard.area"] for c, _ in traced]
+    for counters, host_ms in traced:
+        assert counters["shard.area_total"] == sum(areas) > 0
+        assert counters["shard.area_max"] == max(areas)
+        assert (counters["shard.ranks"], counters["shard.deals"]) == (n, 1)
+        assert counters["comm.calls"] > 0 and counters["comm.bytes"] > 0
+        assert {"comm.all_gather", "comm.all_to_all", "comm.all_reduce",
+                "comm.gather_reads", "ranks.deal", "ranks.wait"} <= set(
+                    host_ms)
 
 
 def test_shard_slice():
