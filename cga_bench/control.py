@@ -105,7 +105,7 @@ def readings(workload: str, seed: int, n_jobs: int, device, side: str,
     else:
         outs, run_s = control_outputs(cell, jobs[1:], seed, device), None
     t1 = time.perf_counter()
-    nums = ref.JUDGES[cell.config["entry"]](
+    nums = spec.entry(cell.config["entry"]).judge(
         jobs[1:], outs, cell.config["settings"], cell.config["check"], seed,
         device)
     nums["seconds"] = {"jobs": run_s, "side": t1 - t0,

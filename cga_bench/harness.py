@@ -2,8 +2,9 @@
 the comparison with the reference, and the result line.
 
 Set-up makes the run's genome and a pool of jobs from the seed (each job
-the reads of one circular segment, written as FASTA under ``TMPDIR`` and
-parsed), builds or loads the port's kernels and runs one warm-up job.  The
+the reads of one circular segment, written as FASTA under ``TMPDIR`` by up
+to ``POOL_WORKERS`` processes and parsed here in job order), builds or
+loads the port's kernels and runs one warm-up job.  The
 window then runs whole jobs back to back through the configuration's entry
 point and stops at the first job end at or after ``seconds``; only
 completed jobs count, and a job is never run twice.  ``--trace 1`` times
@@ -12,6 +13,7 @@ the same window with the port's spans, kernel events and
 end-to-end ones.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -21,11 +23,12 @@ import tempfile
 import time
 
 from . import readsim, spec, trace
-from .reference.judge import JUDGES
 
 #: top-level module names that no run may load
 FORBIDDEN = ("jax", "jaxlib", "flax", "claragenomicsanalysis_tpu")
 WINDOW = "cga_bench.window"
+#: the most processes that write the pool, one a core the run had
+POOL_WORKERS = 8
 
 
 class RunError(RuntimeError):
@@ -56,22 +59,17 @@ def device_info(torch, chips: int) -> dict:
             "count": chips}
 
 
-def make_pool(seed: int, cell: spec.Cell, workdir: str, parse):
+def make_pool(seed: int, cell: spec.Cell, workdir: str, parse,
+              workers: int = 1, cores=None):
     """(warm-up job, jobs): each a (reads, parser) pair, its FASTA under
-    ``workdir``.  The warm-up job is the mix's law on a segment of
-    ``warmup_segment`` bases: every code path of a job, less of the work."""
-    tr = cell.traffic
-    g = cell.config["genome"]["length"]
-    genome = readsim.genome(seed, g)
-    n = int(tr["pool_jobs"])
-    starts = readsim.segment_starts(seed, g, tr["segment"], n + 1)
-    jobs = []
-    for j in range(-1, n):
-        law = dict(tr, segment=tr["warmup_segment"]) if j < 0 else tr
-        reads = readsim.make_job(seed, j, law, genome, int(starts[j + 1]))
-        path = os.path.join(workdir, f"job{j + 1}.fasta")
-        readsim.write_fasta(reads, path)
-        jobs.append((reads, parse(path)))
+    ``workdir``, written by ``workers`` processes on ``cores``
+    (``readsim.write_pool``) and read here in job order as they come.  The
+    warm-up job is the mix's law on a segment of ``warmup_segment`` bases:
+    every code path of a job, less of the work."""
+    with contextlib.closing(readsim.write_pool(
+            seed, cell.traffic, cell.config["genome"]["length"], workdir,
+            workers, cores)) as paths:
+        jobs = [(readsim.read_fasta(path), parse(path)) for path in paths]
     return jobs[0], jobs[1:]
 
 
@@ -90,7 +88,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
              t_start: float, root=spec.ROOT, device: str = "cuda",
              fault=None, host_cores=None) -> dict:
     """One run; returns the result line's object.  ``host_cores``, where
-    given, is the set of cores the reference gets back after the window.
+    given, is the set of cores the pool's workers and, after the window,
+    the reference get.
     ``device="cpu"`` and ``fault`` (a function of an entry's output and the
     job's reads that returns a damaged output) exist for the benchmark's
     own tests."""
@@ -109,15 +108,17 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     workdir = tempfile.mkdtemp(prefix="cga_bench_")
     try:
         t_imports = time.perf_counter()
+        workers = min(POOL_WORKERS, len(host_cores)) if host_cores else 1
         (_, warm_parser), pool = make_pool(
-            seed, cell, workdir, create_fasta_parser)
+            seed, cell, workdir, create_fasta_parser, workers, host_cores)
         t_pool = time.perf_counter()
         entry.run(warm_parser, settings, device)
         if device == "cuda":
             torch.cuda.synchronize()
         t_warm = time.perf_counter()
         print(f"set-up: imports and device {t_imports - t_start:.3f} s, "
-              f"pool of {len(pool)} jobs {t_pool - t_imports:.3f} s, "
+              f"pool of {len(pool)} jobs {t_pool - t_imports:.3f} s "
+              f"({workers} processes), "
               f"warm-up job {t_warm - t_pool:.3f} s", file=sys.stderr)
         check_imports("after set-up")
         # the pool stays alive through the window: out of the collector's
@@ -203,10 +204,9 @@ def _measure(torch, cell, entry, settings, pool, seed, seconds, traced,
         torch.cuda.empty_cache()
     if host_cores:
         os.sched_setaffinity(0, host_cores)
-    judge = JUDGES[cell.config["entry"]]
     t_ref = time.perf_counter()
-    numbers = judge(done, outputs, settings, cell.config["check"], seed,
-                    device)
+    numbers = entry.judge(done, outputs, settings, cell.config["check"], seed,
+                          device)
     print(f"window: {len(done)} jobs, {elapsed:.3f} s ("
           f"{', '.join(f'{b - a:.3f}' for a, b in spans)}); reference: "
           f"{time.perf_counter() - t_ref:.3f} s", file=sys.stderr)

@@ -257,6 +257,3 @@ def judge_correct(jobs, outputs, settings, check, seed, device):
             "reads_compared": (len(picks), None),
             "windows_compared": (sum(-(-len(jobs[j][r][1]) // W)
                                      for j, r in picks), None)}
-
-
-JUDGES = {"pipeline": judge_pipeline, "correct": judge_correct}

@@ -1,4 +1,4 @@
-"""The metric arithmetic: host ms a read Mbp, the pipeline's self time,
+"""The metric arithmetic: host ms a read Mbp, the pipeline's CIGAR strings,
 B4's counted work and roofline, the device's idle share and the
 breakdown, from hand-made records."""
 
@@ -14,7 +14,7 @@ REC = {"bases": 2_000_000, "mbp": 2.0, "elapsed_s": 40.0, "setup_s": 21.5,
        "host_ms": {"pipeline.map": 60.0, "pipeline.align": 30_000.0,
                    "aligner.pack": 1_000.0, "aligner.myers": 20_000.0,
                    "aligner.hirschberg": 15_000.0,
-                   "hirschberg.split": 9_000.0},
+                   "hirschberg.split": 9_000.0, "pipeline.cigar": 900.0},
        "kernel_ms": {"myers": 150.0, "nw_diag": 40.0, "tb_decode": 10.0},
        "myers": (0.03, 0.15), "busy_s": 0.5, "window_s": 40.0}
 
@@ -33,10 +33,12 @@ def test_rates_and_ms_per_mbp():
     assert read("peak_mem_gib.overlap") == 3.0
 
 
-def test_self_time_of_pipeline_align():
-    # 30,000 ms less aligner.pack and aligner.myers (hirschberg is inside
-    # aligner.myers, so it is not taken off again)
-    assert read("cigar_ms_per_mbp.overlap") == (30_000 - 21_000) / 2
+def test_cigar_strings_of_the_pipeline():
+    # pipeline.cigar's own host ms, not pipeline.align's less its aligner
+    # ranges; a run that never entered it reads nothing
+    assert read("cigar_strings_ms_per_mbp.overlap") == 900.0 / 2
+    rec = dict(REC, host_ms={"pipeline.align": 30_000.0})
+    assert read("cigar_strings_ms_per_mbp.overlap", rec) is None
 
 
 def test_hirschberg_reads_zero_where_no_pair_went_there():

@@ -1,14 +1,15 @@
-"""The job generator's law (cga_bench/readsim.py) and its agreement with
-the port's read simulator."""
+"""The job generator's law (cga_bench/readsim.py), its agreement with the
+port's read simulator, and the pool its worker processes write."""
 
+import hashlib
 import json
 import os
 
 import numpy as np
 import pytest
 
-from cga_bench import readsim
-from conftest import ROOT
+from cga_bench import harness, readsim, spec
+from conftest import ROOT, TINY
 
 LONG = json.load(open(os.path.join(ROOT, "cga_bench", "traffic",
                                    "long10k.json")))
@@ -128,3 +129,123 @@ def test_law_matches_the_ports_simulator():
         ours_pairs.append((s, reverse_complement(frag)
                            if name.endswith("-") else frag))
     assert abs(rate(ours_pairs) - rate(theirs_pairs)) < 0.006
+
+
+@pytest.mark.parametrize("traffic,job,digest", [
+    (LONG, -1, "d10ecaec0e972dcb"), (LONG, 0, "bdf300e47b91451e"),
+    (LONG, 49, "8cedebdee0e48a85"), (SHORT, -1, "55d31d403539c144"),
+    (SHORT, 0, "ae22232908517b1f"), (SHORT, 49, "5a3e4e3b9bfebe10")],
+    ids=["long-warmup", "long-0", "long-49", "short-warmup", "short-0",
+         "short-49"])
+def test_jobs_stay_what_every_earlier_run_measured(tmp_path, traffic, job,
+                                                   digest):
+    """A job's FASTA, byte for byte, as the generator first made it: the
+    ledger compares runs across changes of this file only while it holds."""
+    seed, g = 2**40 + 7, 4_641_652
+    start = readsim.segment_starts(seed, g, traffic["segment"], 51)[job + 1]
+    law = dict(traffic, segment=traffic["warmup_segment"]) if job < 0 \
+        else traffic
+    path = str(tmp_path / "job.fasta")
+    readsim.write_fasta(readsim.make_job(seed, job, law,
+                                         readsim.genome(seed, g), int(start)),
+                        path)
+    with open(path, "rb") as f:
+        assert hashlib.sha256(f.read()).hexdigest()[:16] == digest
+
+
+def serial_pool(seed, traffic, genome_length, workdir):
+    """The pool as one process made it before the workers: (reads, FASTA
+    bytes) of the warm-up job and every job, in job order."""
+    g = readsim.genome(seed, genome_length)
+    n = int(traffic["pool_jobs"])
+    starts = readsim.segment_starts(seed, genome_length, traffic["segment"],
+                                    n + 1)
+    out = []
+    for j in range(-1, n):
+        law = dict(traffic, segment=traffic["warmup_segment"]) if j < 0 \
+            else traffic
+        reads = readsim.make_job(seed, j, law, g, int(starts[j + 1]))
+        path = os.path.join(workdir, f"serial{j + 1}.fasta")
+        readsim.write_fasta(reads, path)
+        with open(path, "rb") as f:
+            out.append((reads, f.read()))
+    return out
+
+
+def pool_cell(traffic, genome_length):
+    return spec.Cell("t", 1, {"genome": {"length": genome_length}}, traffic,
+                     [], [])
+
+
+def built_pool(seed, traffic, genome_length, workdir, workers, cores=None):
+    """(reads, FASTA bytes) of every job of ``harness.make_pool``."""
+    warm, jobs = harness.make_pool(seed, pool_cell(traffic, genome_length),
+                                   str(workdir), lambda p: p, workers, cores)
+    out = []
+    for reads, path in [warm] + jobs:
+        with open(path, "rb") as f:
+            out.append((reads, f.read()))
+    return out
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_parallel_pool_equals_the_serial_one(tmp_path, workers):
+    traffic = dict(TINY, pool_jobs=7)
+    seed = 2**33 + 17
+    want = serial_pool(seed, traffic, 60_000, tmp_path)
+    cores = os.sched_getaffinity(0) if hasattr(os, "sched_getaffinity") \
+        else None
+    got = built_pool(seed, traffic, 60_000, tmp_path, workers, cores)
+    assert len(got) == 8
+    assert got == want
+
+
+def test_a_larger_pool_begins_with_the_smaller_one(tmp_path):
+    """The first 50 jobs of a 144-job long10k pool are a 50-job pool's:
+    the mix's segments and seeds (one read a job keeps the test short)."""
+    g = spec.cell("overlap_ont.long10k", ROOT).config["genome"]["length"]
+    few = dict(LONG, depth=1, pool_jobs=50)
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    small = built_pool(2**40 + 9, few, g, tmp_path / "a", 3)
+    large = built_pool(2**40 + 9, dict(few, pool_jobs=144), g,
+                       tmp_path / "b", 3)
+    assert len(small) == 51 and len(large) == 145
+    assert large[:51] == small
+
+
+@pytest.mark.parametrize("sound", [True, False], ids=["sound", "failing"])
+def test_no_worker_outlives_the_pool(tmp_path, monkeypatch, sound):
+    started = []
+    popen = readsim.subprocess.Popen
+
+    def record(*args, **kwargs):
+        started.append(popen(*args, **kwargs))
+        return started[-1]
+    monkeypatch.setattr(readsim.subprocess, "Popen", record)
+    traffic = dict(TINY, pool_jobs=5)
+    if not sound:
+        traffic["lengths"] = dict(traffic["lengths"], kind="unknown")
+        with pytest.raises(RuntimeError, match="pool worker"):
+            built_pool(3, traffic, 60_000, tmp_path, 3)
+    else:
+        assert len(built_pool(3, traffic, 60_000, tmp_path, 3)) == 6
+    assert len(started) == 3
+    for p in started:
+        assert p.returncode is not None
+        with pytest.raises(ProcessLookupError):
+            os.kill(p.pid, 0)
+
+
+def test_the_long10k_pool_fits_the_genome():
+    """144 jobs and the warm-up take every 32,000-base segment of E. coli's
+    4,641,652 bases; one job more does not fit."""
+    g = spec.cell("correct_ont.long10k", ROOT).config["genome"]["length"]
+    assert LONG["pool_jobs"] == 144 and SHORT["pool_jobs"] == 80
+    assert LONG["pool_jobs"] + 1 == g // LONG["segment"]
+    starts = readsim.segment_starts(2**31 + 5, g, LONG["segment"],
+                                    LONG["pool_jobs"] + 1)
+    assert len(set(starts.tolist())) == 145
+    with pytest.raises(ValueError):
+        readsim.segment_starts(2**31 + 5, g, LONG["segment"],
+                               LONG["pool_jobs"] + 2)
